@@ -1,0 +1,84 @@
+"""Build the port's CUDA sources with ``nvcc`` at first use; load with ctypes.
+
+Each ``csrc/<name>.cu`` becomes ``build/lib<name>-<hash>.so``, where the hash
+covers the source and the compiler flags, so an edited source rebuilds and
+an unchanged one loads from the cache. Sources have a plain C interface (no
+PyTorch headers), which keeps a build to seconds. Nothing here runs at
+import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict
+
+PKG_DIR = Path(__file__).resolve().parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+
+# --fmad=false: no multiply-add contraction, so fp32 results match the plain
+# PyTorch versions bit for bit (see csrc/nms_keep.cu). Never --use_fast_math.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_LOADED: "Dict[str, ctypes.CDLL]" = {}
+build_seconds: "Dict[str, float]" = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless the cached library is current."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    # Compile to a private name, then rename: a concurrent loader never sees
+    # a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for {name}.cu ({proc.returncode}):\n{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    build_seconds[name] = time.perf_counter() - t0
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build if needed, then load ``lib<name>``; cached per process."""
+    if name not in _LOADED:
+        _LOADED[name] = ctypes.CDLL(str(build(name)))
+    return _LOADED[name]
