@@ -6,8 +6,9 @@
 Phases (each prints one JSON line):
 
 1. device   -- the card's name and power limit (``nvidia-smi``).
-2. build    -- compiles ``multimodal_moe_torch/csrc/*.cu`` with nvcc into
-               ``multimodal_moe_torch/build/``.
+2. build    -- compiles ``multimodal_moe_torch/csrc/{nms_keep,ms_deform_fwd}.cu``
+               with nvcc, both at once, into ``multimodal_moe_torch/build/``;
+               build seconds and ptxas register and spill counts.
 3. nms_keep -- the NMS keep-mask kernel against its plain PyTorch version on
                the card: B=128 K=512 class-agnostic and B=16 K=1024 with 3
                classes, forced score ties, repeated boxes, boxes exactly at
@@ -22,19 +23,44 @@ Phases (each prints one JSON line):
                the headline, bf16 B=128 pool 512 full tail: forward ms, NMS
                tail ms, img/s and peak memory, with the launch count of the
                kernel taken over this run alone.
+5. ms_deform_fwd -- the deformable-attention kernel against its plain
+               version, and the grid_sample formulation against the plain
+               version, at three shapes: the RT-DETR headline (B=16, levels
+               88x156/44x78/22x39, NH=8, D=32, L=3, P=4, Q=300, locations in
+               [-0.3, 1.3]), the shape of tests/test_deformable_pallas.py
+               (D=8 < 32), and locations exactly on pixel centres and on the
+               borders 0 and 1. Tolerance: max |d| <= 1e-5 * max(1, max|values|).
+6. rtdetr_fp32 -- RT-DETR r50vd (hidden 256, 300 queries, 6 decoder layers,
+               ``arch="tpu"``, random weights from seed 0), fp32 with TF32 off,
+               B=1 at 704x1248, card against CPU (plain deformable version):
+               encoder scores, encoder top-k logits, final logits and boxes
+               within |d| <= 1e-4 + 1e-3*|cpu|, the CPU decoding the card's
+               top-300 queries; the same top-300 selection where the CPU's
+               scores are not closer than the card-CPU difference; the
+               kernel on decoder layer 0's own inputs against the plain
+               version; ``ms_deform_fwd_launches`` up by exactly 6.
+7. rtdetr_serving -- RT-DETR through ``make_serving_step`` (DETR top-k tail,
+               max_det 300, score threshold 0.001), 704x1248, B=16, in fp32
+               (TF32 off, the repo's own RT-DETR configuration) and in bf16:
+               step, forward and tail ms, img/s, peak memory, the forward
+               split (backbone / encoder / query selection + decoder, CUDA
+               events), the kernel's launches over one step from zero; the
+               kernel, plain and grid_sample times on the bf16 step's own
+               decoder-layer-0 inputs, and the bound from the value rows
+               those inputs really sample.
 
-Then the ``kernels`` line, the ``nvidia-smi`` line and, last, the result line
-``{"ok": true, "device": {...}}``. Any failed check raises, so the script
-exits non-zero and prints no result line; so does a machine without CUDA.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -43,17 +69,29 @@ if str(ROOT) not in sys.path:
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from multimodal_moe_torch import _build  # noqa: E402
+from multimodal_moe_torch.models import rtdetr as rtdetr_module  # noqa: E402
+from multimodal_moe_torch.models.rtdetr import RTDETRDetector, anchors_for  # noqa: E402
 from multimodal_moe_torch.models.yolo import YoloDetector  # noqa: E402
-from multimodal_moe_torch.ops import nms_kernel  # noqa: E402
+from multimodal_moe_torch.ops import deformable_kernel, nms_kernel  # noqa: E402
+from multimodal_moe_torch.ops.deformable import (  # noqa: E402
+    level_shapes_to_offsets,
+    ms_deformable_attention,
+)
 from multimodal_moe_torch.ops.nms import (  # noqa: E402
     NEG_INF,
     _batched_nms_plain,
     _preselect,
     batched_nms,
 )
-from multimodal_moe_torch.serving import make_serving_step, yolo_serving_nms  # noqa: E402
+from multimodal_moe_torch.ops.nms import stable_topk  # noqa: E402
+from multimodal_moe_torch.serving import (  # noqa: E402
+    detr_topk_select,
+    make_serving_step,
+    yolo_serving_nms,
+)
 
 IMG_H, IMG_W = 704, 1248
 POOL, IOU, SCORE_THR, MAX_DET = 512, 0.7, 0.001, 300
@@ -62,6 +100,14 @@ POOL, IOU, SCORE_THR, MAX_DET = 512, 0.7, 0.001, 300
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 IOU_FLOPS = 14  # min/max/sub/mul/add/div/compare per pair, areas amortised
+KERNELS = ("nms_keep", "ms_deform_fwd")
+# RT-DETR headline (bench.py: RT_B=16 at the protocol resolution).
+RT_B, RT_QUERIES, RT_LAYERS = 16, 300, 6
+RT_LEVELS = ((IMG_H // 8, IMG_W // 8), (IMG_H // 16, IMG_W // 16), (IMG_H // 32, IMG_W // 32))
+RT_NH, RT_D, RT_P = 8, 32, 4
+# Per sample point beyond the 4 corners' 2*D multiply-adds: geometry,
+# bilinear weights and bounds tests.
+DEFORM_POINT_FLOPS = 20
 
 
 def emit(obj) -> None:
@@ -301,6 +347,379 @@ def phase_headline(dev, smi: str):
     return serving, kernel
 
 
+def build_kernels() -> dict:
+    """Build every kernel of the port at once (one nvcc each, in parallel)."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        libs = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
+    report = {}
+    for name in KERNELS:
+        log = _build.build_logs.get(name, "")
+        report[name] = {
+            "library": str(libs[name].relative_to(ROOT)),
+            "compiled": name in _build.build_seconds,
+            "nvcc_seconds": _build.build_seconds.get(name),
+            "registers": [int(r) for r in re.findall(r"Used (\d+) registers", log)],
+            "spill_bytes": [int(a) + int(b) for a, b in
+                            re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)],
+        }
+    return {"phase": "build", "seconds": time.perf_counter() - t0, "kernels": report,
+            "nvcc_flags": list(_build.NVCC_FLAGS)}
+
+
+# --------------------------------------------------------------------------
+# multi-scale deformable attention
+# --------------------------------------------------------------------------
+
+def deform_tol(values) -> float:
+    """Every output is a combination of value rows with weights summing to
+    at most 1, summed in another order than the plain version."""
+    return 1e-5 * max(1.0, float(values.abs().max()))
+
+
+def deform_bound(values, level_shapes, loc, attn) -> dict:
+    """Least time for what these inputs need: every value row (one head's D
+    floats) that a corner in bounds with a non-zero weight samples, read
+    once, ``loc`` and ``attn`` read once and the output written once, over
+    the memory rate; or those corners' multiply-adds and each point's
+    geometry over the fp32 rate. Rows no query samples are not counted."""
+    b, total, nh, d = values.shape
+    _, q, _, n_levels, _, _ = loc.shape
+    dev = loc.device
+    hw = torch.tensor(level_shapes, dtype=torch.float32, device=dev).view(1, 1, 1, n_levels, 1, 2)
+    hgt, wid = hw[..., 0], hw[..., 1]
+    starts = torch.tensor(level_shapes_to_offsets(level_shapes)[0], device=dev)
+    starts = starts.view(1, 1, 1, n_levels, 1)
+    x = loc[..., 0] * wid - 0.5          # the kernel's geometry, in fp32
+    y = loc[..., 1] * hgt - 0.5
+    x0, y0 = x.floor(), y.floor()
+    wx, wy = x - x0, y - y0
+    batch = torch.arange(b, device=dev).view(b, 1, 1, 1, 1)
+    head = torch.arange(nh, device=dev).view(1, 1, nh, 1, 1)
+    rows, corners = [], 0
+    for dy in (0, 1):
+        for dx in (0, 1):
+            cx, cy = x0 + dx, y0 + dy
+            w = attn * (wx if dx else 1 - wx) * (wy if dy else 1 - wy)
+            ok = (cx >= 0) & (cx < wid) & (cy >= 0) & (cy < hgt) & (w != 0)
+            pix = (starts + torch.where(ok, cy, 0).long() * wid.long()
+                   + torch.where(ok, cx, 0).long())
+            rows.append((((batch * total + pix) * nh + head))[ok])
+            corners += int(ok.sum())
+    n_rows = int(torch.unique(torch.cat(rows)).numel())
+    nbytes = 4 * (n_rows * d + loc.numel() + attn.numel() + b * q * nh * d)
+    flops = corners * 2 * d + attn.numel() * DEFORM_POINT_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops, "value_rows_read": n_rows,
+            "value_rows_total": b * total * nh, "corners_in_bounds": corners,
+            "corners_total": 4 * attn.numel()}
+
+
+def grid_sample_deform(values, level_shapes, loc, attn):
+    """The upstream RT-DETR's PyTorch formulation (the library yardstick):
+    per level ``F.grid_sample`` on (B·NH, D, H, W), then the attention-
+    weighted sum. Timed and checked here only; the port never calls it."""
+    b, _, nh, d = values.shape
+    _, q, _, n_levels, n_points, _ = loc.shape
+    grids = 2 * loc - 1
+    sampled = []
+    sizes = [h * w for h, w in level_shapes]
+    for lvl, (v_l, (h, w)) in enumerate(zip(values.split(sizes, dim=1), level_shapes)):
+        v_l = v_l.permute(0, 2, 3, 1).reshape(b * nh, d, h, w)
+        g = grids[:, :, :, lvl].permute(0, 2, 1, 3, 4).reshape(b * nh, q, n_points, 2)
+        sampled.append(F.grid_sample(v_l, g, mode="bilinear", padding_mode="zeros",
+                                     align_corners=False))              # (B·NH, D, Q, P)
+    s = torch.stack(sampled, dim=-2)                                    # (B·NH, D, Q, L, P)
+    a = attn.permute(0, 2, 1, 3, 4).reshape(b * nh, 1, q, n_levels, n_points)
+    out = (s * a).sum((-1, -2)).view(b, nh, d, q)
+    return out.permute(0, 3, 1, 2).reshape(b, q, nh * d)
+
+
+def deform_problem(levels, b, nh, d, p, q, seed, dev, mode="uniform"):
+    """Seeded values and softmaxed weights; locations uniform in
+    [-0.3, 1.3] (out of bounds on every side), or on pixel centres and the
+    borders 0 and 1 (``mode="grid"``)."""
+    rng = np.random.default_rng(seed)
+    total = sum(h * w for h, w in levels)
+    values = rng.normal(0.0, 1.0, (b, total, nh, d)).astype(np.float32)
+    shape = (b, q, nh, len(levels), p)
+    if mode == "uniform":
+        loc = rng.uniform(-0.3, 1.3, shape + (2,))
+    else:
+        hw = np.asarray(levels, np.float64)[None, None, None, :, None, ::-1]  # (W, H)
+        loc = (np.floor(rng.uniform(0, 1, shape + (2,)) * hw) + 0.5) / hw
+        pick = rng.integers(0, 4, shape + (2,))
+        loc = np.where(pick == 1, 0.0, np.where(pick == 2, 1.0, loc))
+    logits = rng.normal(0.0, 1.0, (b, q, nh, len(levels) * p))
+    attn = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)  # noqa: E731
+    return t(values), t(loc), t(attn.reshape(shape))
+
+
+def deform_compare(values, levels, loc, attn) -> dict:
+    """Kernel and grid_sample against the plain version on the same inputs;
+    the numbers are emitted before any check can raise."""
+    got = deformable_kernel.ms_deform_attn_fwd(values, levels, loc, attn)
+    ref = ms_deformable_attention(values, levels, loc, attn)
+    lib = grid_sample_deform(values, levels, loc, attn)
+    torch.cuda.synchronize()
+    return {"tolerance": deform_tol(values),
+            "max_abs_err": float((got - ref).abs().max()),
+            "grid_sample_max_abs_err": float((lib - ref).abs().max()),
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def check_deform(rec: dict, what: str) -> None:
+    check(rec["finite"], f"{what}: finite kernel output")
+    check(rec["max_abs_err"] <= rec["tolerance"], f"{what}: kernel vs plain")
+    check(rec["grid_sample_max_abs_err"] <= rec["tolerance"], f"{what}: grid_sample vs plain")
+
+
+def deform_times(values, levels, loc, attn) -> dict:
+    fn = deformable_kernel.ms_deform_attn_fwd
+    bound = deform_bound(values, levels, loc, attn)
+    kernel_ms = cuda_ms(lambda: fn(values, levels, loc, attn), reps=20, warmup=3)
+    return {
+        "kernel_ms": kernel_ms,
+        "plain_ms": cuda_ms(lambda: ms_deformable_attention(values, levels, loc, attn), reps=5),
+        "library_ms": cuda_ms(lambda: grid_sample_deform(values, levels, loc, attn), reps=5),
+        **bound,
+        # The bytes these inputs need over the kernel's time.
+        "achieved_gb_per_s": bound["bytes"] / kernel_ms / 1e6,
+    }
+
+
+def phase_deform_kernel(dev) -> dict:
+    cases = {
+        "headline": (RT_LEVELS, RT_B, RT_NH, RT_D, RT_P, RT_QUERIES, "uniform"),
+        "test_shape": (((8, 12), (4, 6), (2, 3)), 2, 2, 8, 4, 7, "uniform"),
+        "centres_and_borders": (RT_LEVELS, 2, RT_NH, RT_D, RT_P, RT_QUERIES, "grid"),
+    }
+    report = {}
+    for seed, (name, (levels, b, nh, d, p, q, mode)) in enumerate(cases.items()):
+        values, loc, attn = deform_problem(levels, b, nh, d, p, q, seed, dev, mode)
+        rec = {"levels": levels, "B": b, "NH": nh, "D": d, "P": p, "Q": q, "loc": mode,
+               **deform_compare(values, levels, loc, attn)}
+        if name == "headline":
+            rec.update(deform_times(values, levels, loc, attn))
+        report[name] = rec
+    emit({"phase": "ms_deform_fwd", "cases": report})
+    for name, rec in report.items():
+        check_deform(rec, f"ms_deform_fwd {name}")
+    return report
+
+
+# --------------------------------------------------------------------------
+# RT-DETR
+# --------------------------------------------------------------------------
+
+def build_rtdetr(dtype, dev, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    model = RTDETRDetector(num_classes=1, num_queries=RT_QUERIES, num_decoder_layers=RT_LAYERS,
+                           arch="tpu", dtype=dtype, generator=gen)
+    return model.eval().to(dev).to(memory_format=torch.channels_last)
+
+
+@contextlib.contextmanager
+def query_selection(record: "list | None" = None, replay: "torch.Tensor | None" = None):
+    """Wrap RTDETRDetector's top-k query selection (``stable_topk`` in
+    models/rtdetr.py): append the indices it picks to ``record``, or make it
+    pick ``replay`` instead, so that two forwards decode the same queries."""
+    real = rtdetr_module.stable_topk
+
+    def select(scores, k):
+        if replay is None:
+            picked = real(scores, k)
+            record.append(picked[1])
+            return picked
+        idx = replay.to(scores.device)
+        return torch.gather(scores, 1, idx), idx
+
+    rtdetr_module.stable_topk = select
+    try:
+        yield
+    finally:
+        rtdetr_module.stable_topk = real
+
+
+class Capture:
+    """Forward hooks: the encoder scores and the deformable kernel's inputs
+    of decoder layer 0 (recomputed from the layer's own inputs by
+    ``MSDeformAttn.sampling_inputs``, the code the forward runs)."""
+
+    def __init__(self, model):
+        self.enc_logits = None
+        self.kernel_inputs = None
+        self._handles = [
+            model.enc_score.register_forward_hook(self._enc),
+            model.decoder0.cross_attn.register_forward_hook(self._cross),
+        ]
+
+    def _enc(self, module, args, out):
+        self.enc_logits = out.float()
+
+    def _cross(self, module, args, out):
+        query, ref, values, level_shapes = args
+        self.kernel_inputs = (*module.sampling_inputs(query, ref, values), level_shapes)
+
+    def remove(self):
+        for h in self._handles:
+            h.remove()
+
+
+def phase_rtdetr_fp32(dev) -> "tuple[dict, float]":
+    model = build_rtdetr(torch.float32, dev)
+    cpu_model = copy.deepcopy(model).cpu().to(memory_format=torch.contiguous_format)
+    images = random_images(1, seed=3, dev=dev)
+    card_cap, cpu_cap = Capture(model), Capture(cpu_model)
+    before = deformable_kernel.ms_deform_fwd_launches
+    picked = []
+    with torch.inference_mode():
+        with query_selection(record=picked):
+            on_card = model(images.float() / 255.0)
+        torch.cuda.synchronize()
+        launched = deformable_kernel.ms_deform_fwd_launches - before
+        # The CPU decodes the card's queries, whatever its own scores pick.
+        with query_selection(replay=picked[0]):
+            on_cpu = cpu_model(images.cpu().float() / 255.0)
+    card_cap.remove()
+    cpu_cap.remove()
+
+    tol = lambda ref: 1e-4 + 1e-3 * ref.abs()  # noqa: E731
+    # The top-300 selection, on each device from its own encoder scores.
+    _, valid = anchors_for(RT_LEVELS)
+    valid = torch.as_tensor(valid)
+    scores = {k: c.enc_logits.cpu().max(-1).values.masked_fill(~valid[None], -1e9)
+              for k, c in (("card", card_cap), ("cpu", cpu_cap))}
+    top_card = picked[0].cpu()
+    top_cpu = stable_topk(scores["cpu"], RT_QUERIES)[1]
+    srt = torch.sort(scores["cpu"], dim=-1, descending=True).values[0, : RT_QUERIES + 1]
+    gaps = srt[:-1] - srt[1:]
+    same_selection = torch.equal(top_card, top_cpu)
+    errs = {"enc_scores": float((scores["card"] - scores["cpu"]).abs().max())}
+    # Scores closer than twice the largest card-CPU difference may swap.
+    selection_defined = bool(gaps.min() > 2 * errs["enc_scores"])
+    ok = {"enc_scores": bool(((scores["card"] - scores["cpu"]).abs() <= tol(scores["cpu"])).all())}
+    pairs = {"enc_outputs.pred_logits": (on_card["enc_outputs"]["pred_logits"],
+                                         on_cpu["enc_outputs"]["pred_logits"]),
+             "pred_logits": (on_card["pred_logits"], on_cpu["pred_logits"]),
+             "pred_boxes": (on_card["pred_boxes"], on_cpu["pred_boxes"])}
+    for k, (a, b) in pairs.items():
+        d = (a.cpu() - b).abs()
+        errs[k] = float(d.max())
+        ok[k] = bool((d <= tol(b)).all())
+
+    # The kernel on decoder layer 0's own inputs, against the plain version.
+    v, loc, attn, levels = card_cap.kernel_inputs
+    main = deform_compare(v, levels, loc, attn)
+    rec = {
+        "phase": "rtdetr_fp32", "model": "rtdetr r50vd arch=tpu", "batch": 1,
+        "img_hw": [IMG_H, IMG_W], "launches_per_forward": launched,
+        "card_vs_cpu_max_abs": errs, "within_tolerance": ok,
+        "tolerance": "|d| <= 1e-4 + 1e-3*|cpu|",
+        "same_top300": same_selection, "top300_defined": selection_defined,
+        "decoded_queries": "the card's top-300 on both",
+        "cpu_gap_300_301": float(gaps[-1]), "cpu_min_gap_top301": float(gaps.min()),
+        "kernel_on_decoder0_inputs": main, **tf32_state(),
+    }
+    if not same_selection and not selection_defined:
+        rec["note"] = ("the CPU's encoder scores have near-ties closer than twice the "
+                       "card-CPU difference, so its own top-300 may differ from the card's")
+    emit(rec)
+    check(launched == RT_LAYERS, f"ms_deform_fwd launched {launched} times, not {RT_LAYERS}")
+    check_deform(main, "ms_deform_fwd on decoder layer 0's inputs")
+    check(ok["enc_scores"], "card vs CPU encoder scores")
+    check(same_selection or not selection_defined, "card vs CPU top-300 selection")
+    for k in pairs:
+        check(ok[k], f"card vs CPU {k}")
+    return rec, main["max_abs_err"]
+
+
+def forward_split(model, x, reps: int) -> dict:
+    """Mean ms of backbone / encoder / query selection + decoder, by CUDA
+    events recorded from forward hooks."""
+    runs, cur = [], []
+
+    def mark(*_):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        cur.append(e)
+
+    handles = [model.register_forward_pre_hook(mark), model.backbone.register_forward_hook(mark),
+               model.encoder.register_forward_hook(mark), model.register_forward_hook(mark)]
+    try:
+        with torch.inference_mode():
+            for i in range(reps + 1):
+                cur = []
+                model(x)
+                if i:  # the first is a warm-up
+                    runs.append(cur)
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    parts = ("backbone_ms", "encoder_ms", "select_and_decoder_ms")
+    return {p: float(np.mean([r[j].elapsed_time(r[j + 1]) for r in runs]))
+            for j, p in enumerate(parts)}
+
+
+def phase_rtdetr_serving(dev, smi: str, dtype) -> "tuple[dict, dict]":
+    model = build_rtdetr(dtype, dev)
+    kw = dict(max_det=MAX_DET, score_threshold=SCORE_THR)
+    step = make_serving_step(model, **kw)
+    images = random_images(RT_B, seed=4, dev=dev)
+
+    # The main path: the counts from zero over one serving step.
+    cap = Capture(model)
+    deformable_kernel.ms_deform_fwd_launches = 0
+    nms_kernel.nms_keep_launches = 0
+    res = step(images)
+    torch.cuda.synchronize()
+    launches = deformable_kernel.ms_deform_fwd_launches
+    nms_launches = nms_kernel.nms_keep_launches
+    cap.remove()
+    check(launches == RT_LAYERS, f"RT-DETR step launched ms_deform_fwd {launches} times")
+    check(all(bool(torch.isfinite(t).all()) for t in res[:2]), "finite RT-DETR outputs")
+    check(tuple(res.boxes.shape) == (RT_B, min(MAX_DET, RT_QUERIES), 4),
+          "RT-DETR NmsResult shape")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = cuda_ms(lambda: step(images), reps=5)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    x = images.float() / 255.0
+
+    def forward():
+        with torch.inference_mode():
+            return model(images.float() / 255.0)
+
+    forward_ms = cuda_ms(forward, reps=5)
+    out = forward()
+    scores = torch.sigmoid(out["cls_logits"][..., 0].float())
+    tail_ms = cuda_ms(lambda: detr_topk_select(out["boxes"], scores, **kw), reps=20)
+    rec = {
+        "phase": "rtdetr_serving", "model": "rtdetr r50vd arch=tpu",
+        "dtype": str(dtype).replace("torch.", ""), "batch": RT_B, "img_hw": [IMG_H, IMG_W],
+        "num_queries": RT_QUERIES, "decoder_layers": RT_LAYERS, "max_det": MAX_DET,
+        "step_ms": step_ms, "forward_ms": forward_ms, "tail_ms": tail_ms,
+        "img_per_s": RT_B * 1000.0 / step_ms, "peak_mem_gib": peak_gib,
+        "forward_split": forward_split(model, x, reps=3),
+        "ms_deform_fwd_launches": launches, "nms_keep_launches": nms_launches,
+        "valid_out": int(res.valid.sum()), "gpu": smi, **tf32_state(),
+    }
+    v, loc, attn, levels = cap.kernel_inputs
+    main = {"shape": {"B": RT_B, "sum_hw": v.shape[1], "NH": v.shape[2], "D": v.shape[3],
+                      "L": attn.shape[3], "P": attn.shape[4], "Q": attn.shape[1]},
+            "launches": launches, **deform_compare(v, levels, loc, attn),
+            **deform_times(v, levels, loc, attn)}
+    rec["kernel_on_step_inputs"] = main
+    emit(rec)
+    check_deform(main, f"ms_deform_fwd on the {rec['dtype']} step's inputs")
+    return rec, main
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -313,18 +732,29 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
-
-    t0 = time.perf_counter()
-    lib = _build.build("nms_keep")
-    emit({"phase": "build", "library": str(lib.relative_to(ROOT)),
-          "seconds": time.perf_counter() - t0,
-          "compiled": "nms_keep" in _build.build_seconds, "nvcc_flags": list(_build.NVCC_FLAGS)})
+    emit(build_kernels())
 
     emit(phase_kernel(dev))
     emit(phase_fp32(dev))
-    serving, kernel = phase_headline(dev, smi)
+    serving, nms_entry = phase_headline(dev, smi)
     emit(serving)
-    emit({"kernels": [kernel]})
+
+    cases = phase_deform_kernel(dev)
+    _, fp32_err = phase_rtdetr_fp32(dev)
+    phase_rtdetr_serving(dev, smi, torch.float32)
+    _, main = phase_rtdetr_serving(dev, smi, torch.bfloat16)
+    deform_entry = {
+        "name": "ms_deform_fwd", "route": "cuda",
+        "source": "multimodal_moe_torch/csrc/ms_deform_fwd.cu",
+        "replaces": "multimodal_moe_tpu/ops/deformable_pallas.py:97 (_fwd_kernel)",
+        "shape": main["shape"], "launches": main["launches"],
+        "max_abs_err": max([fp32_err, main["max_abs_err"]]
+                           + [c["max_abs_err"] for c in cases.values()]),
+        "ms": main["kernel_ms"], "kernel_ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+    }
+    emit({"kernels": [nms_entry, deform_entry]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

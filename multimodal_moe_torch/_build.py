@@ -25,13 +25,15 @@ BUILD_DIR = PKG_DIR / "build"
 
 # --fmad=false: no multiply-add contraction, so fp32 results match the plain
 # PyTorch versions bit for bit (see csrc/nms_keep.cu). Never --use_fast_math.
+# -Xptxas -v: ptxas reports each kernel's registers and spills (build_logs).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LOADED: "Dict[str, ctypes.CDLL]" = {}
 build_seconds: "Dict[str, float]" = {}
+build_logs: "Dict[str, str]" = {}
 
 
 def _nvcc() -> str:
@@ -70,6 +72,7 @@ def build(name: str) -> Path:
                 f"nvcc failed for {name}.cu ({proc.returncode}):\n{proc.stderr}"
             )
         os.replace(tmp, out)
+        build_logs[name] = proc.stderr
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)

@@ -2,12 +2,21 @@
 
 The caller turns the JAX arrays into numpy first (``jax.device_get``), so
 this module never sees JAX. The torch modules carry the Flax names, so the
-map is mechanical:
+map is mechanical. Leaf kinds, keyed by their path:
 
 * conv ``kernel`` HWIO → ``weight`` OIHW
-* conv / BN ``bias`` → ``bias``; BN ``scale`` → ``weight``
+* ``Dense`` ``kernel`` ``(in, out)`` → ``Linear.weight`` ``(out, in)``
+* ``MultiHeadDotProductAttention``: the ``query`` / ``key`` / ``value``
+  kernels ``(in, NH, hd)`` → ``(NH·hd, in)`` and their biases ``(NH, hd)``
+  → ``(NH·hd,)``; the ``out`` kernel ``(NH, hd, out)`` → ``(out, NH·hd)``
+* conv / BN / Dense / LayerNorm ``bias`` → ``bias``; BN and LayerNorm
+  ``scale`` → ``weight``
+* the raw parameter ``dn_content_embed`` ``(1, 1, C)`` → the
+  ``nn.Parameter`` of the same name
 * ``batch_stats`` ``mean`` / ``var`` → ``running_mean`` / ``running_var``
   (plus torch's ``num_batches_tracked``, which Flax does not keep)
+
+Any other leaf raises.
 """
 
 from __future__ import annotations
@@ -19,6 +28,8 @@ import torch
 
 _PARAM_LEAVES = {"bias": "bias", "scale": "weight"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+_RAW_PARAMS = {"dn_content_embed"}
+_QKV = {"query", "key", "value"}
 
 
 def _walk(tree: Mapping[str, Any], prefix=()):
@@ -29,6 +40,27 @@ def _walk(tree: Mapping[str, Any], prefix=()):
             yield prefix + (k,), v
 
 
+def _param(path, arr: np.ndarray) -> "tuple[str, np.ndarray]":
+    """One Flax parameter leaf → (torch key, array in torch layout)."""
+    mod, name = ".".join(path[:-1]), path[-1]
+    parent = path[-2] if len(path) > 1 else ""
+    if name == "kernel" and arr.ndim == 4:
+        return f"{mod}.weight", arr.transpose(3, 2, 0, 1)
+    if name == "kernel" and arr.ndim == 2:
+        return f"{mod}.weight", arr.T
+    if name == "kernel" and arr.ndim == 3 and parent in _QKV:
+        return f"{mod}.weight", arr.reshape(arr.shape[0], -1).T
+    if name == "kernel" and arr.ndim == 3 and parent == "out":
+        return f"{mod}.weight", arr.reshape(-1, arr.shape[-1]).T
+    if name == "bias" and arr.ndim == 2 and parent in _QKV:
+        return f"{mod}.bias", arr.reshape(-1)
+    if name in _PARAM_LEAVES and arr.ndim == 1:
+        return f"{mod}.{_PARAM_LEAVES[name]}", arr
+    if name in _RAW_PARAMS:
+        return ".".join(path), arr
+    raise ValueError(f"unsupported parameter {'/'.join(path)} {arr.shape}")
+
+
 def flax_to_state_dict(variables_np: Mapping[str, Any]) -> "Dict[str, torch.Tensor]":
     """``{"params": ..., "batch_stats": ...}`` of numpy arrays → state_dict."""
     unknown = set(variables_np) - {"params", "batch_stats"}
@@ -36,14 +68,8 @@ def flax_to_state_dict(variables_np: Mapping[str, Any]) -> "Dict[str, torch.Tens
         raise ValueError(f"unsupported variable collections: {sorted(unknown)}")
     sd: "Dict[str, torch.Tensor]" = {}
     for path, leaf in _walk(variables_np.get("params", {})):
-        arr = np.asarray(leaf)
-        mod, name = ".".join(path[:-1]), path[-1]
-        if name == "kernel" and arr.ndim == 4:
-            sd[f"{mod}.weight"] = torch.from_numpy(arr.transpose(3, 2, 0, 1).copy())
-        elif name in _PARAM_LEAVES:
-            sd[f"{mod}.{_PARAM_LEAVES[name]}"] = torch.from_numpy(arr.copy())
-        else:
-            raise ValueError(f"unsupported parameter {'/'.join(path)} {arr.shape}")
+        key, arr = _param(path, np.asarray(leaf))
+        sd[key] = torch.from_numpy(arr.copy(order="C"))
     for path, leaf in _walk(variables_np.get("batch_stats", {})):
         mod, name = ".".join(path[:-1]), path[-1]
         if name not in _STAT_LEAVES:

@@ -46,9 +46,10 @@ def autopad(k: int, d: int = 1) -> int:
 
 
 def lecun_normal_(w: torch.Tensor, generator: "torch.Generator | None" = None):
-    """Flax's default conv kernel init: truncated normal (±2σ) with
-    variance 1/fan_in, σ corrected for the truncation."""
-    fan_in = w.shape[1] * w.shape[2] * w.shape[3]
+    """Flax's default conv and Dense kernel init: truncated normal (±2σ)
+    with variance 1/fan_in, σ corrected for the truncation. ``w`` is a torch
+    weight, output channels first: fan_in is everything else."""
+    fan_in = w[0].numel()
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     with torch.no_grad():
         nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
@@ -184,3 +185,21 @@ class PlainStage(nn.Module):
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2× upsample (NCHW)."""
     return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+class MLP(nn.Module):
+    """``Dense_0 … Dense_{n-1}`` with ReLU between them."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int, num_layers: int = 2):
+        super().__init__()
+        dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [out_dim]
+        for i in range(num_layers):
+            self.add_module(f"Dense_{i}", nn.Linear(dims[i], dims[i + 1]))
+        self.num_layers = num_layers
+
+    def forward(self, x):
+        for i in range(self.num_layers):
+            x = getattr(self, f"Dense_{i}")(x)
+            if i < self.num_layers - 1:
+                x = F.relu(x)
+        return x

@@ -9,6 +9,13 @@ K=32 and max_det=20 as tests/test_serving.py uses. Three checks:
     difference of 1e-6 in the forward could reorder a top-K, and this
     separates the tail from the forward;
 (c) the port's full and topk tails agree bitwise.
+
+The DETR route: the same serving step over the tiny RT-DETR of
+tests/test_torch_rtdetr.py (Flax weights converted), against JAX's serving
+step on the same uint8 images: ``valid`` and ``classes`` exact, scores
+atol 1e-6 (the logits agree within ~1e-5 and the scores sit near
+sigmoid(-4.6), where the slope is ~0.01), pixel boxes atol 1e-2 (the
+detector tolerance of ``_torch_parity``).
 """
 
 import jax
@@ -17,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import load_flax, randomize_norm
+from _torch_parity import RTDETR_PIXEL_TOL, load_flax, randomize_norm, rtdetr_pair
 from multimodal_moe_torch import serving as tserving
 from multimodal_moe_torch.entry import entry
 from multimodal_moe_torch.models.yolo import YoloDetector as TorchYolo
@@ -142,3 +149,56 @@ def test_default_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         entry()
+
+
+# --------------------------------------------------------------------------
+# DETR route: RT-DETR through the same serving step
+# --------------------------------------------------------------------------
+
+RT_CFG = dict(hidden_dim=64, num_queries=20, num_decoder_layers=2, num_heads=4)
+RT_SCORE_TOL = 1e-6
+
+
+@pytest.fixture(scope="module")
+def rtdetr():
+    images_u8 = np.random.default_rng(23).integers(0, 256, (2, H, W, 3), dtype=np.uint8)
+    pair = rtdetr_pair(RT_CFG, 3, images_u8.astype(np.float32) / 255.0)
+    return images_u8, pair
+
+
+@pytest.mark.parametrize("max_det", [20, 8])
+def test_rtdetr_serving_step_matches_jax(rtdetr, max_det):
+    images_u8, pair = rtdetr
+    kw = dict(max_det=max_det, score_threshold=0.001)
+    ref = jax.device_get(
+        jserving.make_serving_step(pair.jmodel, **kw)(pair.variables, jnp.asarray(images_u8)))
+    # The order of the top max_det is well defined at this tolerance.
+    scores = 1.0 / (1.0 + np.exp(-np.asarray(pair.jax_out["cls_logits"][..., 0], np.float64)))
+    top = -np.sort(-scores, axis=-1)[:, : max_det + 1]
+    assert (-np.diff(top, axis=-1)).min() > 2 * RT_SCORE_TOL
+    got = tserving.make_serving_step(pair.tmodel, **kw)(images_u8)
+    assert got.boxes.shape == (2, max_det, 4) and got.valid.dtype == torch.bool
+    assert bool(got.valid.all())  # random weights: every score ≈ sigmoid(-4.6) > 0.001
+    np.testing.assert_array_equal(got.valid.numpy(), ref.valid)
+    np.testing.assert_array_equal(got.classes.numpy(), ref.classes)
+    np.testing.assert_allclose(got.scores.numpy(), ref.scores, rtol=0, atol=RT_SCORE_TOL)
+    np.testing.assert_allclose(got.boxes.numpy(), ref.boxes, rtol=0, atol=RTDETR_PIXEL_TOL)
+
+
+def test_rtdetr_serving_threshold_masks_like_jax(rtdetr):
+    """A threshold between the scores: the entries below it come out as
+    boxes 0, score 0, class -1 in both."""
+    images_u8, pair = rtdetr
+    scores = 1.0 / (1.0 + np.exp(-np.asarray(pair.jax_out["cls_logits"][..., 0], np.float64)))
+    srt = np.sort(scores.ravel())
+    mid = len(srt) // 2
+    assert srt[mid] - srt[mid - 1] > 2 * RT_SCORE_TOL
+    kw = dict(max_det=20, score_threshold=float(srt[mid - 1] + srt[mid]) / 2)
+    ref = jax.device_get(
+        jserving.make_serving_step(pair.jmodel, **kw)(pair.variables, jnp.asarray(images_u8)))
+    got = tserving.make_serving_step(pair.tmodel, **kw)(images_u8)
+    assert 0 < int(got.valid.sum()) < got.valid.numel()
+    np.testing.assert_array_equal(got.valid.numpy(), ref.valid)
+    np.testing.assert_array_equal(got.classes.numpy(), ref.classes)
+    np.testing.assert_allclose(got.scores.numpy(), ref.scores, rtol=0, atol=RT_SCORE_TOL)
+    np.testing.assert_allclose(got.boxes.numpy(), ref.boxes, rtol=0, atol=RTDETR_PIXEL_TOL)
