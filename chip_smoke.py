@@ -48,6 +48,37 @@ Phases (each prints one JSON line):
                kernel, plain and grid_sample times on the bf16 step's own
                decoder-layer-0 inputs, and the bound from the value rows
                those inputs really sample.
+8. moe_ffn_fwd -- the fused expert-FFN kernel against its plain version on the
+               card: bf16 at the three MoE-YOLO-s level shapes of the B=128
+               headline (E=4; d=128/256/512, h=2d; C from the code's own
+               capacity rule, rounded up to 256), fp32 at the shape of
+               tests/test_moe_kernels.py, and experts 0, 1 and 3 zeroed (only
+               expert 2's rows may be non-zero). Tolerances: fp32
+               |d| <= 1e-4*max(1, max|ref|); bf16 one bf16 ulp of the hidden
+               tile carried through |W2| plus one ulp of the output
+               (``moe_kernels.ffn_tolerance``). Kernel, plain and library
+               (two cuBLAS baddbmm with SiLU between) times and the bound.
+9. moe_yolo_fp32 -- MoE-YOLO-s (E=4, k=2, cf=1.25, ``arch="tpu"``, random
+               weights from seed 0, context bias randomised), fp32 with TF32
+               off, B=2 at 704x1248, seeded context ids, card against CPU in
+               ``sweep`` and in ``sparse`` with ``use_fused_ffn``. The CPU
+               replays the card's top-2 expert choice; logits within
+               |d| <= 1e-4 + 1e-3*|cpu|; per level, the tokens whose own top-2
+               differ on the CPU beside the tokens whose 2nd/3rd probability
+               gap is below twice the router logit difference (a difference
+               is allowed only there); ``moe_ffn_fwd_launches`` up by exactly 3
+               per fused forward; the kernel on level 0's own buffer.
+10. moe_yolo_serving -- the MoE headline: MoE-YOLO-s bf16 B=128 at 704x1248
+               through ``make_serving_step`` (pool 512, full tail, IoU 0.7,
+               score threshold 0.001, max_det 300) with seeded context ids,
+               on ``dispatch="auto"`` (resolves to sweep at all three
+               levels) and on ``sparse`` with each level's ``use_fused_ffn``:
+               step ms, img/s, peak memory, the forward split (backbone +
+               neck / each MoE level / head + decode; CUDA events from hooks)
+               and the tail, the launches over one step from zero, the
+               dropped-token share and expert load per level; then the kernel
+               on the step's own three level buffers against its plain
+               version, with times and bounds.
 
 """
 
@@ -72,10 +103,12 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from multimodal_moe_torch import _build  # noqa: E402
+from multimodal_moe_torch.models import moe as moe_module  # noqa: E402
 from multimodal_moe_torch.models import rtdetr as rtdetr_module  # noqa: E402
+from multimodal_moe_torch.models.moe_yolo import MoEYoloDetector  # noqa: E402
 from multimodal_moe_torch.models.rtdetr import RTDETRDetector, anchors_for  # noqa: E402
 from multimodal_moe_torch.models.yolo import YoloDetector  # noqa: E402
-from multimodal_moe_torch.ops import deformable_kernel, nms_kernel  # noqa: E402
+from multimodal_moe_torch.ops import deformable_kernel, moe_kernels, nms_kernel  # noqa: E402
 from multimodal_moe_torch.ops.deformable import (  # noqa: E402
     level_shapes_to_offsets,
     ms_deformable_attention,
@@ -98,9 +131,10 @@ POOL, IOU, SCORE_THR, MAX_DET = 512, 0.7, 0.001, 300
 # Published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores and HBM bandwidth. The bound is stated against these.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12  # dense tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 IOU_FLOPS = 14  # min/max/sub/mul/add/div/compare per pair, areas amortised
-KERNELS = ("nms_keep", "ms_deform_fwd")
+KERNELS = ("nms_keep", "ms_deform_fwd", "moe_ffn_fwd")
 # RT-DETR headline (bench.py: RT_B=16 at the protocol resolution).
 RT_B, RT_QUERIES, RT_LAYERS = 16, 300, 6
 RT_LEVELS = ((IMG_H // 8, IMG_W // 8), (IMG_H // 16, IMG_W // 16), (IMG_H // 32, IMG_W // 32))
@@ -364,7 +398,7 @@ def build_kernels() -> dict:
                             re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)],
         }
     return {"phase": "build", "seconds": time.perf_counter() - t0, "kernels": report,
-            "nvcc_flags": list(_build.NVCC_FLAGS)}
+            "nvcc_flags": {name: list(_build.nvcc_flags(name)) for name in KERNELS}}
 
 
 # --------------------------------------------------------------------------
@@ -524,25 +558,31 @@ def build_rtdetr(dtype, dev, seed=0):
 
 
 @contextlib.contextmanager
-def query_selection(record: "list | None" = None, replay: "torch.Tensor | None" = None):
-    """Wrap RTDETRDetector's top-k query selection (``stable_topk`` in
-    models/rtdetr.py): append the indices it picks to ``record``, or make it
-    pick ``replay`` instead, so that two forwards decode the same queries."""
-    real = rtdetr_module.stable_topk
-
-    def select(scores, k):
-        if replay is None:
-            picked = real(scores, k)
-            record.append(picked[1])
-            return picked
-        idx = replay.to(scores.device)
-        return torch.gather(scores, 1, idx), idx
-
-    rtdetr_module.stable_topk = select
+def patched(module, name, make):
+    """Replace ``module.name`` by ``make(real)`` for the duration."""
+    real = getattr(module, name)
+    setattr(module, name, make(real))
     try:
         yield
     finally:
-        rtdetr_module.stable_topk = real
+        setattr(module, name, real)
+
+
+def topk_selection(module, record: "list | None" = None, replay: "list | None" = None):
+    """Wrap ``module.stable_topk`` (RTDETRDetector's query selection, the MoE
+    routers' expert choice): append the indices each call picks to
+    ``record``, or make the calls pick ``replay``'s, in order, so that two
+    forwards select the same queries or experts."""
+    def make(real):
+        def select(scores, k):
+            if replay is None:
+                picked = real(scores, k)
+                record.append(picked[1])
+                return picked
+            idx = replay.pop(0).to(scores.device)
+            return torch.gather(scores, 1, idx), idx
+        return select
+    return patched(module, "stable_topk", make)
 
 
 class Capture:
@@ -578,12 +618,12 @@ def phase_rtdetr_fp32(dev) -> "tuple[dict, float]":
     before = deformable_kernel.ms_deform_fwd_launches
     picked = []
     with torch.inference_mode():
-        with query_selection(record=picked):
+        with topk_selection(rtdetr_module, record=picked):
             on_card = model(images.float() / 255.0)
         torch.cuda.synchronize()
         launched = deformable_kernel.ms_deform_fwd_launches - before
         # The CPU decodes the card's queries, whatever its own scores pick.
-        with query_selection(replay=picked[0]):
+        with topk_selection(rtdetr_module, replay=[picked[0]]):
             on_cpu = cpu_model(images.cpu().float() / 255.0)
     card_cap.remove()
     cpu_cap.remove()
@@ -638,9 +678,10 @@ def phase_rtdetr_fp32(dev) -> "tuple[dict, float]":
     return rec, main["max_abs_err"]
 
 
-def forward_split(model, x, reps: int) -> dict:
-    """Mean ms of backbone / encoder / query selection + decoder, by CUDA
-    events recorded from forward hooks."""
+def event_split(model, call, marks, parts, reps: int) -> dict:
+    """Mean ms between CUDA events recorded from module hooks: ``marks`` is
+    a list of (module, "pre" or "post"), one event each per forward;
+    ``parts`` names the spans between consecutive marks."""
     runs, cur = [], []
 
     def mark(*_):
@@ -648,20 +689,19 @@ def forward_split(model, x, reps: int) -> dict:
         e.record()
         cur.append(e)
 
-    handles = [model.register_forward_pre_hook(mark), model.backbone.register_forward_hook(mark),
-               model.encoder.register_forward_hook(mark), model.register_forward_hook(mark)]
+    handles = [m.register_forward_pre_hook(mark) if kind == "pre" else m.register_forward_hook(mark)
+               for m, kind in marks]
     try:
         with torch.inference_mode():
             for i in range(reps + 1):
                 cur = []
-                model(x)
+                call()
                 if i:  # the first is a warm-up
                     runs.append(cur)
         torch.cuda.synchronize()
     finally:
         for h in handles:
             h.remove()
-    parts = ("backbone_ms", "encoder_ms", "select_and_decoder_ms")
     return {p: float(np.mean([r[j].elapsed_time(r[j + 1]) for r in runs]))
             for j, p in enumerate(parts)}
 
@@ -689,7 +729,6 @@ def phase_rtdetr_serving(dev, smi: str, dtype) -> "tuple[dict, dict]":
     torch.cuda.reset_peak_memory_stats(dev)
     step_ms = cuda_ms(lambda: step(images), reps=5)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
-    x = images.float() / 255.0
 
     def forward():
         with torch.inference_mode():
@@ -705,7 +744,10 @@ def phase_rtdetr_serving(dev, smi: str, dtype) -> "tuple[dict, dict]":
         "num_queries": RT_QUERIES, "decoder_layers": RT_LAYERS, "max_det": MAX_DET,
         "step_ms": step_ms, "forward_ms": forward_ms, "tail_ms": tail_ms,
         "img_per_s": RT_B * 1000.0 / step_ms, "peak_mem_gib": peak_gib,
-        "forward_split": forward_split(model, x, reps=3),
+        "forward_split": event_split(
+            model, forward,
+            [(model, "pre"), (model.backbone, "post"), (model.encoder, "post"), (model, "post")],
+            ["backbone_ms", "encoder_ms", "select_and_decoder_ms"], reps=3),
         "ms_deform_fwd_launches": launches, "nms_keep_launches": nms_launches,
         "valid_out": int(res.valid.sum()), "gpu": smi, **tf32_state(),
     }
@@ -718,6 +760,364 @@ def phase_rtdetr_serving(dev, smi: str, dtype) -> "tuple[dict, dict]":
     emit(rec)
     check_deform(main, f"ms_deform_fwd on the {rec['dtype']} step's inputs")
     return rec, main
+
+
+# --------------------------------------------------------------------------
+# MoE-YOLO and the fused expert FFN
+# --------------------------------------------------------------------------
+
+MOE_E, MOE_K, MOE_CF, MOE_B = 4, 2, 1.25, 128
+MOE_WIDTHS = (128, 256, 512)          # MoE-YOLO-s neck widths; h = 2d
+MOE_LEVELS = ((IMG_H // 8, IMG_W // 8), (IMG_H // 16, IMG_W // 16), (IMG_H // 32, IMG_W // 32))
+
+
+def fused_capacity(tokens: int) -> int:
+    """MoEFFN's capacity on the fused route (models/moe.py)."""
+    return moe_kernels.round_up_capacity(max(int(tokens * MOE_K * MOE_CF / MOE_E), MOE_K))
+
+
+def ffn_bound(e, c, d, h, dtype) -> "tuple[float, str]":
+    """Least time for the fused FFN: the buffer read and the output written
+    once, the weights read once, over the memory rate; or the two products'
+    4*E*C*d*h flops over the peak of the type (bf16 tensor cores, or fp32
+    outside them). Every row of the buffer counts: the kernel's function
+    covers the empty ones too."""
+    elt = 2 if dtype == torch.bfloat16 else 4
+    nbytes = elt * (2 * e * c * d + e * (2 * d * h + h + d))
+    flops = 4 * e * c * d * h
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / (PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def library_ffn(buf, w1, b1, w2, b2, capacity):
+    """The library yardstick: two cuBLAS ``baddbmm`` with SiLU between, in
+    the working dtype. Timed here only; the port never calls it."""
+    e = w1.shape[0]
+    x = buf.view(e, capacity, -1)
+    mid = F.silu(torch.baddbmm(b1, x, w1))
+    return torch.baddbmm(b2, mid, w2).view(e * capacity, -1)
+
+
+def ffn_problem(e, c, d, h, dtype, seed, dev, fill=0.8, weight_scale=None):
+    """A capacity buffer whose segments are ``fill`` full (the rest zeros,
+    as dispatch leaves them) and Flax-scaled expert weights with small
+    random biases, from ``seed``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)  # noqa: E731
+    buf = rnd(e, c, d)
+    buf[:, int(c * fill):] = 0
+    s1 = weight_scale or (e * d) ** -0.5
+    s2 = weight_scale or (e * h) ** -0.5
+    args = (buf.view(e * c, d), rnd(e, d, h) * s1, rnd(e, 1, h) * 0.1, rnd(e, h, d) * s2,
+            rnd(e, 1, d) * 0.1)
+    return tuple(t.to(dtype).contiguous() for t in args)
+
+
+@torch.inference_mode()
+def ffn_compare(args, capacity) -> dict:
+    """The kernel and the library yardstick against the plain version on
+    the same inputs; numbers are returned before any check can raise."""
+    got = moe_kernels.moe_ffn_fwd(*args, capacity)
+    ref = moe_kernels._ffn_plain(*args, capacity)
+    lib = library_ffn(*args, capacity)
+    tol = moe_kernels.ffn_tolerance(*args, capacity, ref)
+    torch.cuda.synchronize()
+    d = (got.float() - ref.float()).abs()
+    rec = {"max_abs_err": float(d.max()), "max_err_over_tolerance": float((d / tol).max()),
+           "within_tolerance": bool((d <= tol).all()), "finite": bool(torch.isfinite(got).all()),
+           "library_max_abs_err": float((lib.float() - ref.float()).abs().max()),
+           "max_abs_ref": float(ref.float().abs().max())}
+    del got, ref, lib, tol, d
+    return rec
+
+
+@torch.inference_mode()
+def ffn_times(args, capacity) -> dict:
+    buf, w1 = args[0], args[1]
+    e, d, h = w1.shape
+    bound_ms, bound_by = ffn_bound(e, capacity, d, h, buf.dtype)
+    kernel_ms = cuda_ms(lambda: moe_kernels.moe_ffn_fwd(*args, capacity), reps=10, warmup=2)
+    flops = 4 * e * capacity * d * h
+    return {"kernel_ms": kernel_ms,
+            "plain_ms": cuda_ms(lambda: moe_kernels._ffn_plain(*args, capacity), reps=3, warmup=1),
+            "library_ms": cuda_ms(lambda: library_ffn(*args, capacity), reps=10, warmup=2),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "kernel_tflops": flops / kernel_ms / 1e9, "flops": flops}
+
+
+def check_ffn(rec: dict, what: str) -> None:
+    check(rec["finite"], f"{what}: finite kernel output")
+    check(rec["within_tolerance"], f"{what}: kernel vs plain within tolerance")
+
+
+def phase_moe_ffn(dev) -> dict:
+    cases = {}
+    for lvl, ((hh, ww), d) in enumerate(zip(MOE_LEVELS, MOE_WIDTHS)):
+        c = fused_capacity(MOE_B * hh * ww)
+        cases[f"level{lvl}"] = (torch.bfloat16, MOE_E, c, d, 2 * d, None)
+    cases["test_shape_f32"] = (torch.float32, 4, 512, 64, 128, 0.05)
+    cases["experts_0_1_3_zeroed"] = (torch.bfloat16, 4, 512, 128, 256, None)
+    report = {}
+    for seed, (name, (dtype, e, c, d, h, scale)) in enumerate(cases.items()):
+        args = ffn_problem(e, c, d, h, dtype, seed, dev, weight_scale=scale)
+        if name == "experts_0_1_3_zeroed":
+            args[1][[0, 1, 3]] = 0
+            args[2].zero_()
+            args[4].zero_()
+        rec = {"dtype": str(dtype).replace("torch.", ""), "E": e, "C": c, "d": d, "h": h,
+               "rows": e * c, **ffn_compare(args, c)}
+        if name == "experts_0_1_3_zeroed":
+            out = moe_kernels.moe_ffn_fwd(*args, c).view(e, c, d)
+            rec["zeroed_experts_max_abs"] = float(out[[0, 1, 3]].float().abs().max())
+            rec["expert2_nonzero"] = bool(out[2].float().abs().sum() > 0)
+        if name.startswith("level"):
+            rec.update(ffn_times(args, c))
+        report[name] = rec
+        del args
+        torch.cuda.empty_cache()
+    emit({"phase": "moe_ffn_fwd", "cases": report})
+    for name, rec in report.items():
+        check_ffn(rec, f"moe_ffn_fwd {name}")
+    zeroed = report["experts_0_1_3_zeroed"]
+    check(zeroed["zeroed_experts_max_abs"] == 0 and zeroed["expert2_nonzero"],
+          "moe_ffn_fwd picks each row tile's own expert")
+    return report
+
+
+def build_moe_yolo(dtype, dev, seed=0):
+    """MoE-YOLO-s with random weights from ``seed``; the context bias is
+    randomised too (it initialises to zeros), so that the bins matter."""
+    gen = torch.Generator().manual_seed(seed)
+    model = MoEYoloDetector(num_classes=1, variant="s", num_experts=MOE_E, k=MOE_K,
+                            capacity_factor=MOE_CF, dtype=dtype, arch="tpu", generator=gen)
+    with torch.no_grad():
+        for i in range(3):
+            bias = getattr(model, f"moe_level{i}").router.context_bias
+            bias.copy_(torch.randn(bias.shape, generator=gen) * 0.5)
+    return model.eval().to(dev).to(memory_format=torch.channels_last)
+
+
+def moe_levels(model):
+    return [getattr(model, f"moe_level{i}") for i in range(3)]
+
+
+def set_route(model, route: str) -> None:
+    """``auto``, ``sweep``, or ``fused`` (``sparse`` with each level's own
+    ``use_fused_ffn``, the JAX MoEFFN's ``use_pallas_ffn``)."""
+    for m in moe_levels(model):
+        m.dispatch = "sparse" if route == "fused" else route
+        m.use_fused_ffn = route == "fused"
+
+
+def context_ids(b, seed, dev):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, moe_module.NUM_SOLAR_BINS, (b,), generator=gen).to(dev)
+
+
+def recording_ffn(record: list):
+    """Record the arguments of every fused expert-FFN call (level order)."""
+    def make(real):
+        def ffn(*args):
+            record.append(tuple(a.detach() if torch.is_tensor(a) else a for a in args))
+            return real(*args)
+        return ffn
+    return patched(moe_kernels, "fused_expert_ffn", make)
+
+
+def router_logits(model):
+    logits, handles = [], []
+    for m in moe_levels(model):
+        handles.append(m.router.register_forward_hook(lambda mod, a, o: logits.append(o.float())))
+    return logits, handles
+
+
+def phase_moe_yolo_fp32(dev) -> "tuple[dict, float]":
+    b = 2
+    model = build_moe_yolo(torch.float32, dev)
+    cpu_model = copy.deepcopy(model).cpu().to(memory_format=torch.contiguous_format)
+    images = random_images(b, seed=5, dev=dev)
+    ctx = context_ids(b, seed=6, dev=dev)
+    tol = lambda ref: 1e-4 + 1e-3 * ref.abs()  # noqa: E731
+    rec = {"phase": "moe_yolo_fp32", "model": "moe-yolo-s E=4 k=2 cf=1.25 arch=tpu",
+           "batch": b, "img_hw": [IMG_H, IMG_W], "context_ids": ctx.tolist(),
+           "tolerance": "|d| <= 1e-4 + 1e-3*|cpu|", "routes": {}, **tf32_state()}
+    ok, kernel_err = {}, 0.0
+    for route in ("sweep", "fused"):
+        set_route(model, route)
+        set_route(cpu_model, route)
+        picked, ffn_args = [], []
+        card_logits, h1 = router_logits(model)
+        cpu_logits, h2 = router_logits(cpu_model)
+        before = moe_kernels.moe_ffn_fwd_launches
+        with torch.inference_mode():
+            with topk_selection(moe_module, record=picked), recording_ffn(ffn_args):
+                on_card = model(images.float() / 255.0, ctx)
+            torch.cuda.synchronize()
+            launched = moe_kernels.moe_ffn_fwd_launches - before
+            # The CPU routes each token to the card's experts, whatever its own
+            # logits pick; where they would pick otherwise is counted below.
+            with topk_selection(moe_module, replay=[p.cpu() for p in picked]):
+                on_cpu = cpu_model(images.cpu().float() / 255.0, ctx.cpu())
+        for h in h1 + h2:
+            h.remove()
+        r = {"moe_ffn_fwd_launches": launched, "levels": []}
+        for lvl, (lc, lp, p) in enumerate(zip(card_logits, cpu_logits, picked)):
+            diff = float((lc.cpu() - lp).abs().max())
+            probs = torch.softmax(lp, -1)
+            srt = torch.sort(probs, dim=-1, descending=True).values
+            close = (srt[:, MOE_K - 1] - srt[:, MOE_K]) <= 2 * diff
+            own = moe_module.stable_topk(probs, MOE_K)[1]
+            differ = (torch.sort(own, -1).values != torch.sort(p.cpu(), -1).values).any(-1)
+            r["levels"].append({"tokens": int(lp.shape[0]), "router_logit_max_abs": diff,
+                                "top2_differ": int(differ.sum()),
+                                "gap_below_2x_diff": int(close.sum()),
+                                "differ_only_where_close": bool((~differ | close).all())})
+        errs = {}
+        for k in ("box_logits", "cls_logits"):
+            d = (on_card[k].cpu() - on_cpu[k]).abs()
+            errs[k] = float(d.max())
+            ok[f"{route}.{k}"] = bool((d <= tol(on_cpu[k])).all())
+        errs["boxes_px"] = float((on_card["boxes"].cpu() - on_cpu["boxes"]).abs().max())
+        r.update({"card_vs_cpu_max_abs": errs,
+                  "moe_aux_loss": {"card": float(on_card["moe_aux_loss"]),
+                                   "cpu": float(on_cpu["moe_aux_loss"])},
+                  "expert_load": {"card": on_card["expert_load"].cpu().tolist(),
+                                  "cpu": on_cpu["expert_load"].tolist()}})
+        if route == "fused":
+            r["kernel_on_level0_buffer"] = ffn_compare(ffn_args[0][:5], ffn_args[0][5])
+            kernel_err = r["kernel_on_level0_buffer"]["max_abs_err"]
+        rec["routes"][route] = r
+        del on_card, on_cpu, ffn_args, picked
+    emit(rec)
+    fused = rec["routes"]["fused"]
+    check(fused["moe_ffn_fwd_launches"] == 3,
+          f"fused MoE-YOLO forward launched moe_ffn_fwd {fused['moe_ffn_fwd_launches']} times, not 3")
+    check(rec["routes"]["sweep"]["moe_ffn_fwd_launches"] == 0, "the sweep route launches no FFN kernel")
+    check_ffn(fused["kernel_on_level0_buffer"], "moe_ffn_fwd on level 0's own fp32 buffer")
+    for route, r in rec["routes"].items():
+        for lvl, lr in enumerate(r["levels"]):
+            check(lr["differ_only_where_close"], f"{route} level {lvl}: top-2 differs only at near-ties")
+    for k, v in ok.items():
+        check(v, f"MoE-YOLO card vs CPU {k}")
+    return rec, kernel_err
+
+
+def phase_moe_yolo_serving(dev, smi: str) -> "tuple[dict, dict]":
+    b = MOE_B
+    model = build_moe_yolo(torch.bfloat16, dev)
+    nms_kw = dict(iou_threshold=IOU, score_threshold=SCORE_THR, max_det=MAX_DET)
+    step = make_serving_step(model, pool=POOL, tail="full", **nms_kw)
+    images = random_images(b, seed=7, dev=dev)
+    ctx = context_ids(b, seed=8, dev=dev)
+    x = images.float() / 255.0
+    tokens = [b * hh * ww for hh, ww in MOE_LEVELS]
+    levels = moe_levels(model)
+    rec = {"phase": "moe_yolo_serving", "model": "moe-yolo-s E=4 k=2 cf=1.25 arch=tpu",
+           "dtype": "bfloat16", "batch": b, "img_hw": [IMG_H, IMG_W], "pool": POOL,
+           "max_det": MAX_DET, "tail": "full", "tokens_per_level": tokens,
+           "context_ids_histogram": torch.bincount(ctx, minlength=6).tolist(), "routes": {},
+           "gpu": smi, **tf32_state()}
+    step_buffers = None
+
+    def forward():
+        with torch.inference_mode():
+            return model(x, ctx)
+
+    for route in ("auto", "fused"):
+        set_route(model, route)
+        # The main path: the counts from zero over one serving step.
+        moe_kernels.moe_ffn_fwd_launches = 0
+        nms_kernel.nms_keep_launches = 0
+        dropped, ffn_args = [], []
+
+        def sparse_router(real):
+            def route_fn(logits, **kw):
+                rd = real(logits, **kw)
+                dropped.append(float(1.0 - rd.valid.float().mean()))
+                return rd
+            return route_fn
+
+        with patched(moe_module, "route_top_k_sparse", sparse_router), recording_ffn(ffn_args):
+            res = step(images, ctx)
+            torch.cuda.synchronize()
+        r = {"resolved_dispatch": [moe_module.resolve_dispatch(m.dispatch, t, MOE_E)
+                                   for m, t in zip(levels, tokens)],
+             "moe_ffn_fwd_launches": moe_kernels.moe_ffn_fwd_launches,
+             "nms_keep_launches": nms_kernel.nms_keep_launches,
+             "dropped_token_share": dropped or None}
+        check(all(bool(torch.isfinite(t).all()) for t in res[:2]), f"finite MoE outputs ({route})")
+        check(tuple(res.boxes.shape) == (b, MAX_DET, 4), "MoE NmsResult shape")
+        if route == "fused":
+            step_buffers = [(a[:5], a[5]) for a in ffn_args]
+        del ffn_args
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        r["step_ms"] = cuda_ms(lambda: step(images, ctx), reps=5)
+        r["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        r["img_per_s"] = b * 1000.0 / r["step_ms"]
+        out = forward()
+        with torch.inference_mode():
+            scores = torch.sigmoid(out["cls_logits"][..., 0])
+        r["expert_load"] = out["expert_load"].tolist()
+        r["moe_aux_loss"] = float(out["moe_aux_loss"])
+        r["forward_ms"] = cuda_ms(forward, reps=5)
+        r["tail_ms"] = cuda_ms(lambda: batched_nms(out["boxes"], scores, num_candidates=POOL,
+                                                   **nms_kw), reps=10)
+        r["forward_split"] = event_split(
+            model, forward,
+            [(model, "pre"), (model.neck, "post")] + [(m, "post") for m in levels]
+            + [(model, "post")],
+            ["backbone_neck_ms", "moe_level0_ms", "moe_level1_ms", "moe_level2_ms",
+             "head_decode_ms"], reps=3)
+        r["valid_out"] = int(res.valid.sum())
+        rec["routes"][route] = r
+        del out, scores, res
+        torch.cuda.empty_cache()
+
+    # The kernel on the fused step's own three level buffers.
+    per_level = []
+    for (args, c), d in zip(step_buffers, MOE_WIDTHS):
+        e, _, h = args[1].shape
+        lv = {"E": e, "C": c, "d": d, "h": h, "rows": e * c, **ffn_compare(args, c),
+              **ffn_times(args, c)}
+        lv["filled_rows"] = int((args[0].abs().amax(-1) > 0).sum())
+        per_level.append(lv)
+    del step_buffers
+    torch.cuda.empty_cache()
+    rec["kernel_on_step_buffers"] = per_level
+    emit(rec)
+    fused, auto = rec["routes"]["fused"], rec["routes"]["auto"]
+    check(auto["resolved_dispatch"] == ["sweep"] * 3, f"auto resolves to {auto['resolved_dispatch']}")
+    check(fused["moe_ffn_fwd_launches"] == 3,
+          f"fused serving step launched moe_ffn_fwd {fused['moe_ffn_fwd_launches']} times, not 3")
+    check(auto["moe_ffn_fwd_launches"] == 0, "the auto (sweep) step launches no FFN kernel")
+    for route, r in rec["routes"].items():
+        check(r["nms_keep_launches"] >= 1, f"{route} serving step launched nms_keep")
+    for lvl, lv in enumerate(per_level):
+        check_ffn(lv, f"moe_ffn_fwd on the step's level {lvl} buffer")
+    return rec, per_level
+
+
+def moe_kernel_entry(per_level, launches, errs) -> dict:
+    """One ``kernels`` entry for the three launches of a fused step: times
+    and bounds summed over the levels, each level beside them."""
+    total = lambda k: float(sum(lv[k] for lv in per_level))  # noqa: E731
+    ops_ms = sum(lv["bound_ms"] for lv in per_level if lv["bound_by"] == "operations")
+    return {
+        "name": "moe_ffn_fwd", "route": "cuda",
+        "source": "multimodal_moe_torch/csrc/moe_ffn_fwd.cu",
+        "replaces": "multimodal_moe_tpu/ops/moe_kernels.py:28 (_ffn_kernel)",
+        "shape": {"E": MOE_E, "levels": [{"C": lv["C"], "d": lv["d"], "h": lv["h"]}
+                                         for lv in per_level], "dtype": "bfloat16"},
+        "launches": launches, "max_abs_err": max(errs),
+        "ms": total("kernel_ms"), "kernel_ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
+        "bound_ms": total("bound_ms"),
+        "bound_by": "operations" if ops_ms >= total("bound_ms") / 2 else "bytes",
+        "library_ms": total("library_ms"),
+        "per_level": [{k: lv[k] for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                                          "bound_by", "max_abs_err")} for lv in per_level],
+    }
 
 
 def main() -> int:
@@ -754,7 +1154,15 @@ def main() -> int:
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
     }
-    emit({"kernels": [nms_entry, deform_entry]})
+
+    ffn_cases = phase_moe_ffn(dev)
+    _, fp32_ffn_err = phase_moe_yolo_fp32(dev)
+    moe_serving, per_level = phase_moe_yolo_serving(dev, smi)
+    ffn_entry = moe_kernel_entry(
+        per_level, moe_serving["routes"]["fused"]["moe_ffn_fwd_launches"],
+        [fp32_ffn_err] + [c["max_abs_err"] for c in ffn_cases.values()]
+        + [lv["max_abs_err"] for lv in per_level])
+    emit({"kernels": [nms_entry, deform_entry, ffn_entry]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Build the port's CUDA sources with ``nvcc`` at first use; load with ctypes.
 
 Each ``csrc/<name>.cu`` becomes ``build/lib<name>-<hash>.so``, where the hash
-covers the source and the compiler flags, so an edited source rebuilds and
-an unchanged one loads from the cache. Sources have a plain C interface (no
+covers the source and its compiler flags (``nvcc_flags``), so an edited
+source rebuilds and an unchanged one loads from the cache. Sources have a
+plain C interface (no
 PyTorch headers), which keeps a build to seconds. Nothing here runs at
 import time.
 """
@@ -30,6 +31,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# Sources built with other flags. The fused expert FFN sums products in an
+# order no plain version shares, so it has nothing to gain from splitting
+# every fp32 multiply-add in two.
+SOURCE_FLAGS = {
+    "moe_ffn_fwd": tuple(f for f in NVCC_FLAGS if f != "--fmad=false"),
+}
 
 _LOADED: "Dict[str, ctypes.CDLL]" = {}
 build_seconds: "Dict[str, float]" = {}
@@ -47,9 +54,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def nvcc_flags(name: str) -> "tuple[str, ...]":
+    return SOURCE_FLAGS.get(name, NVCC_FLAGS)
+
+
 def library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -65,7 +76,7 @@ def build(name: str) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+        cmd = [_nvcc(), *nvcc_flags(name), "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(

@@ -11,8 +11,11 @@ map is mechanical. Leaf kinds, keyed by their path:
   → ``(NH·hd,)``; the ``out`` kernel ``(NH, hd, out)`` → ``(out, NH·hd)``
 * conv / BN / Dense / LayerNorm ``bias`` → ``bias``; BN and LayerNorm
   ``scale`` → ``weight``
-* the raw parameter ``dn_content_embed`` ``(1, 1, C)`` → the
-  ``nn.Parameter`` of the same name
+* raw parameters, kept in the JAX layout under the same name:
+  ``dn_content_embed`` ``(1, 1, C)``; the MoE's ``router_kernel`` ``(d, E)``
+  (not a ``Dense`` kernel: never transposed), ``context_bias`` ``(bins, E)``,
+  ``experts_w1`` ``(E, d, h)``, ``experts_b1`` ``(E, 1, h)``, ``experts_w2``
+  ``(E, h, d)`` and ``experts_b2`` ``(E, 1, d)``
 * ``batch_stats`` ``mean`` / ``var`` → ``running_mean`` / ``running_var``
   (plus torch's ``num_batches_tracked``, which Flax does not keep)
 
@@ -28,7 +31,10 @@ import torch
 
 _PARAM_LEAVES = {"bias": "bias", "scale": "weight"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
-_RAW_PARAMS = {"dn_content_embed"}
+_RAW_PARAMS = {
+    "dn_content_embed", "router_kernel", "context_bias",
+    "experts_w1", "experts_b1", "experts_w2", "experts_b2",
+}
 _QKV = {"query", "key", "value"}
 
 

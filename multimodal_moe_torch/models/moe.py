@@ -1,0 +1,319 @@
+"""Context-routed Mixture-of-Experts (PyTorch), fp path.
+
+Counterpart of ``multimodal_moe_tpu/models/moe.py``: the fp32 context gate
+(``token·W + context_bias[solar_bin]``), the three top-k routers with the
+Switch balance loss and the ST-MoE z-loss, and the dispatch modes of
+``MoEFFN``:
+
+* ``"dense"``: ``(T, E, C)`` dispatch and combine einsums (small T);
+* ``"sweep"``: every expert on every token, combined by the ``(T, E)`` gate
+  matrix (dropless);
+* ``"sparse"``: scatter into an ``(E·C + 1, d)`` capacity buffer whose last
+  row is the trash slot, expert FFN, clipped gather; with ``use_fused_ffn``
+  the expert FFN is the CUDA kernel of :mod:`..ops.moe_kernels` and the
+  capacity is rounded up to its tile;
+* ``"auto"``: dense up to 4096 tokens, then sweep up to 16 experts, else
+  sparse (:func:`resolve_dispatch`).
+
+Single card: the JAX module's mesh sharding constraints have no counterpart
+here. Top-k over probabilities uses ``stable_topk`` (``lax.top_k``'s order:
+lower index first among ties), never ``torch.topk``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import moe_kernels
+from ..ops.nms import stable_topk
+
+# 5 labelled solar-elevation bins + "missing" (data/solar.py of the JAX package).
+NUM_SOLAR_BINS = 6
+
+
+class RouterOutput(NamedTuple):
+    combine: torch.Tensor      # (T, E, C) fp32 combine weights
+    dispatch: torch.Tensor     # (T, E, C) bool dispatch mask
+    aux_loss: torch.Tensor     # scalar: balance + z-loss
+    expert_load: torch.Tensor  # (E,) fraction of tokens routed per expert
+
+
+class RouterDecision(NamedTuple):
+    expert_idx: torch.Tensor   # (T, k) int64
+    gates: torch.Tensor        # (T, k) fp32, renormalised over the selected experts
+    position: torch.Tensor     # (T, k) slot within the expert's queue
+    valid: torch.Tensor        # (T, k) bool: False once capacity is exceeded
+    aux_loss: torch.Tensor     # scalar
+    expert_load: torch.Tensor  # (E,)
+
+
+def _aux_loss(logits, probs, counts, t, k, balance_coef, z_loss_coef):
+    """Switch balance ``E·Σ f_e·P_e`` (f from the pre-capacity top-k counts)
+    plus the router z-loss on the logsumexp."""
+    e = logits.shape[-1]
+    f = counts / (t * k) * e
+    balance = (f * probs.mean(0)).sum() * e
+    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return balance_coef * balance + z_loss_coef * z
+
+
+def _topk_probs(logits, k):
+    logits = logits.float()
+    probs = torch.softmax(logits, dim=-1)
+    topk_probs, topk_idx = stable_topk(probs, k)
+    gates = topk_probs / torch.clamp(topk_probs.sum(-1, keepdim=True), min=1e-9)
+    counts = torch.bincount(topk_idx.reshape(-1), minlength=logits.shape[-1]).float()
+    return logits, probs, topk_idx, gates, counts
+
+
+def route_top_k(logits, *, k: int, capacity: int, balance_coef: float = 0.01,
+                z_loss_coef: float = 1e-3) -> RouterOutput:
+    """Capacity-constrained top-k routing, dense ``(T, E, C)`` outputs.
+    Selection is by logits with ``logits >= kth``, so ties can select more
+    than k; tokens past an expert's capacity are dropped for that expert."""
+    logits = logits.float()
+    t, e = logits.shape
+    probs = torch.softmax(logits, dim=-1)
+    kth = torch.topk(logits, k, dim=-1).values[..., -1:]  # a value: tie order is moot
+    topk = logits >= kth                                            # (T, E)
+    gates = torch.where(topk, probs, 0.0)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+
+    position = torch.cumsum(topk.int(), dim=0) - 1                  # (T, E)
+    within = topk & (position < capacity)
+    pos_onehot = F.one_hot(
+        torch.where(within, position, capacity).long(), capacity + 1
+    )[..., :capacity].float()                                       # (T, E, C)
+    combine = gates[..., None] * pos_onehot
+
+    load = topk.float().mean(0)
+    counts = topk.float().sum(0)
+    aux = _aux_loss(logits, probs, counts, t, k, balance_coef, z_loss_coef)
+    return RouterOutput(combine, pos_onehot > 0, aux, load)
+
+
+def route_top_k_sparse(logits, *, k: int, capacity: int, balance_coef: float = 0.01,
+                       z_loss_coef: float = 1e-3) -> RouterDecision:
+    """The same routing as :func:`route_top_k` in O(T·k) outputs, selecting
+    by probabilities. Queue positions follow the flattened ``(T·k)``
+    selections, token-major and slot-minor."""
+    logits, probs, topk_idx, gates, counts = _topk_probs(logits, k)
+    t, e = logits.shape
+    onehot = F.one_hot(topk_idx.reshape(-1), e)                     # (T·k, E)
+    # The exclusive cumsum over T·k of each expert's column, taken as one
+    # 1-D scan over the expert-major flattening (a CUDA scan along dim 0 of
+    # a (T·k, E) tensor runs one thread per column: ~1 s at T·k = 3.5M).
+    # Each expert's running count then drops the totals of the experts
+    # before it.
+    running = onehot.T.reshape(-1).cumsum(0).reshape(e, -1)
+    running = running - F.pad(running[:-1, -1:], (0, 0, 1, 0))
+    position_flat = running.T - onehot
+    position = torch.gather(position_flat.reshape(t, k, e), -1, topk_idx[..., None])[..., 0]
+    aux = _aux_loss(logits, probs, counts, t, k, balance_coef, z_loss_coef)
+    return RouterDecision(topk_idx, gates, position, position < capacity, aux, counts / t)
+
+
+def route_top_k_dropless(logits, *, k: int, balance_coef: float = 0.01,
+                         z_loss_coef: float = 1e-3):
+    """Top-k routing without capacity: ``(expert_idx (T, k), gates (T, k),
+    aux, expert_load (E,))``."""
+    logits, probs, topk_idx, gates, counts = _topk_probs(logits, k)
+    t = logits.shape[0]
+    aux = _aux_loss(logits, probs, counts, t, k, balance_coef, z_loss_coef)
+    return topk_idx, gates, aux, counts / t
+
+
+def moe_apply_sparse(tokens, decision: RouterDecision, w1, b1, w2, b2, *, capacity: int,
+                     activation=F.silu, use_fused_ffn: bool = False) -> torch.Tensor:
+    """Scatter tokens into the ``(E·C + 1, d)`` capacity buffer (over-capacity
+    copies land in the trash row, last), run the expert FFN on ``E·C`` rows,
+    gather back through clipped slots and weight by gate × valid."""
+    t, d = tokens.shape
+    e = w1.shape[0]
+    k = decision.expert_idx.shape[1]
+    dtype = tokens.dtype
+
+    flat_valid = decision.valid.reshape(-1)
+    slot = torch.where(flat_valid, decision.expert_idx.reshape(-1) * capacity
+                       + decision.position.reshape(-1), e * capacity)
+    src = tokens.repeat_interleave(k, dim=0)                        # (T·k, d)
+    buf = torch.zeros((e * capacity + 1, d), dtype=dtype, device=tokens.device)
+    buf[slot] = torch.where(flat_valid[:, None], src, 0)           # valid slots are unique
+
+    if use_fused_ffn:
+        flat_out = moe_kernels.fused_expert_ffn(
+            buf[: e * capacity], w1.to(dtype), b1.to(dtype), w2.to(dtype), b2.to(dtype),
+            capacity,
+        )
+    else:
+        expert_in = buf[: e * capacity].reshape(e, capacity, d)
+        mid = activation(torch.bmm(expert_in, w1.to(dtype)) + b1.to(dtype))
+        flat_out = (torch.bmm(mid, w2.to(dtype)) + b2.to(dtype)).reshape(e * capacity, d)
+    gathered = flat_out[torch.clamp(slot, 0, e * capacity - 1)]     # (T·k, d)
+    weighted = gathered * (decision.gates.reshape(-1, 1).to(dtype)
+                           * flat_valid[:, None].to(dtype))
+    return weighted.reshape(t, k, d).sum(dim=1)
+
+
+def moe_apply_sweep(tokens, expert_idx, gates, w1, b1, w2, b2, *,
+                    activation=F.silu) -> torch.Tensor:
+    """Every expert over every token, combined with the ``(T, E)`` gate
+    matrix as multiply-then-sum over E (dropless)."""
+    t = tokens.shape[0]
+    e = w1.shape[0]
+    dtype = tokens.dtype
+    mid = activation(torch.matmul(tokens, w1.to(dtype)) + b1.to(dtype))      # (E, T, h)
+    out_e = torch.matmul(mid, w2.to(dtype)) + b2.to(dtype)                   # (E, T, d)
+    comb = torch.zeros((t, e), dtype=torch.float32, device=tokens.device)
+    comb.scatter_add_(1, expert_idx, gates.float())
+    return (out_e * comb.T.to(dtype)[:, :, None]).sum(dim=0)
+
+
+def resolve_dispatch(dispatch: str, num_tokens: int, num_experts: int) -> str:
+    """Resolve ``dispatch="auto"`` to the mode :class:`MoEFFN` runs."""
+    if dispatch != "auto":
+        return dispatch
+    if num_tokens <= MoEFFN.DENSE_TOKEN_LIMIT:
+        return "dense"
+    if num_experts <= MoEFFN.SWEEP_EXPERT_LIMIT:
+        return "sweep"
+    return "sparse"
+
+
+class ContextGate(nn.Module):
+    """``tokens·router_kernel + context_bias[context_ids]`` in float32. The
+    parameters stay float32 when the model around them is cast (ST-MoE: the
+    gate runs in fp32 even in a bf16 trunk)."""
+
+    def __init__(self, dim: int, num_experts: int, num_context_bins: int = NUM_SOLAR_BINS):
+        super().__init__()
+        self.router_kernel = nn.Parameter(torch.zeros(dim, num_experts))  # JAX (in, out) layout
+        self.context_bias = nn.Parameter(torch.zeros(num_context_bins, num_experts))
+
+    def reset_parameters(self, generator: "torch.Generator | None" = None):
+        """Flax's init: ``truncated_normal(0.02)`` (±2σ) kernel, zero bias."""
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.router_kernel, 0.0, 0.02, -0.04, 0.04, generator=generator)
+            self.context_bias.zero_()
+
+    def _apply(self, fn, recurse=True):
+        super()._apply(fn, recurse)
+        for p in self.parameters(recurse=False):
+            if p.dtype != torch.float32:
+                p.data = p.data.float()
+        return self
+
+    def forward(self, tokens, context_ids):
+        return tokens.float() @ self.router_kernel + self.context_bias[context_ids]
+
+
+class ContextRouter(nn.Module):
+    """Context gate + :func:`route_top_k` (dense ``(T, E, C)`` outputs)."""
+
+    def __init__(self, dim: int, num_experts: int, num_context_bins: int = NUM_SOLAR_BINS,
+                 k: int = 2, capacity_factor: float = 1.25, balance_coef: float = 0.01,
+                 z_loss_coef: float = 1e-3):
+        super().__init__()
+        self.gate = ContextGate(dim, num_experts, num_context_bins)
+        self.num_experts, self.k, self.capacity_factor = num_experts, k, capacity_factor
+        self.balance_coef, self.z_loss_coef = balance_coef, z_loss_coef
+
+    def forward(self, tokens, context_ids) -> RouterOutput:
+        t = tokens.shape[0]
+        capacity = max(int(t * self.k * self.capacity_factor / self.num_experts), self.k)
+        return route_top_k(self.gate(tokens, context_ids), k=self.k, capacity=capacity,
+                           balance_coef=self.balance_coef, z_loss_coef=self.z_loss_coef)
+
+
+def _lecun_normal_stacked_(w: torch.Tensor, generator) -> torch.Tensor:
+    """Flax ``lecun_normal`` on an ``(E, in, out)`` kernel: the leading axis
+    counts into the fan-in, so std = 1/sqrt(E·in) (before the truncation
+    correction)."""
+    std = math.sqrt(1.0 / (w.shape[0] * w.shape[1])) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+    return w
+
+
+class MoEFFN(nn.Module):
+    """Expert FFNs stacked ``(E, ...)`` behind a context router, with a
+    residual: ``forward(tokens (T, d), context_ids (T,))`` →
+    ``(tokens + moe(tokens), {"moe_aux_loss", "expert_load"})``.
+
+    Parameters keep the Flax names and layouts (``router.router_kernel``
+    ``(d, E)``, ``router.context_bias``, ``experts_w1`` ``(E, d, h)``,
+    ``experts_b1`` ``(E, 1, h)``, ``experts_w2`` ``(E, h, d)``, ``experts_b2``
+    ``(E, 1, d)``); the expert weights are cast to the compute dtype at use.
+    """
+
+    DENSE_TOKEN_LIMIT = 4096
+    SWEEP_EXPERT_LIMIT = 16
+    MODES = ("auto", "dense", "sweep", "sparse", "gmm")
+
+    def __init__(self, dim: int, num_experts: int = 4, hidden_mult: float = 2.0, k: int = 2,
+                 capacity_factor: float = 1.25, num_context_bins: int = NUM_SOLAR_BINS,
+                 dtype: torch.dtype = torch.float32, dispatch: str = "auto",
+                 use_fused_ffn: bool = False, generator: "torch.Generator | None" = None):
+        super().__init__()
+        if dispatch not in self.MODES:
+            raise ValueError(f"dispatch must be one of {self.MODES}, got {dispatch!r}")
+        h = int(dim * hidden_mult)
+        e = num_experts
+        self.num_experts, self.k, self.capacity_factor = num_experts, k, capacity_factor
+        self.dtype, self.dispatch, self.use_fused_ffn = dtype, dispatch, use_fused_ffn
+        self.router = ContextGate(dim, e, num_context_bins)
+        self.experts_w1 = nn.Parameter(torch.zeros(e, dim, h))
+        self.experts_b1 = nn.Parameter(torch.zeros(e, 1, h))
+        self.experts_w2 = nn.Parameter(torch.zeros(e, h, dim))
+        self.experts_b2 = nn.Parameter(torch.zeros(e, 1, dim))
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: "torch.Generator | None" = None):
+        self.router.reset_parameters(generator)
+        _lecun_normal_stacked_(self.experts_w1, generator)
+        _lecun_normal_stacked_(self.experts_w2, generator)
+        with torch.no_grad():
+            self.experts_b1.zero_()
+            self.experts_b2.zero_()
+
+    def forward(self, tokens, context_ids) -> "Tuple[torch.Tensor, Dict[str, torch.Tensor]]":
+        if not tokens.is_floating_point():
+            raise NotImplementedError(
+                "int8 (QT) tokens: the w8a8 expert sweep is not ported yet "
+                "(ROADMAP.md queue A item 5)")
+        t = tokens.shape[0]
+        e = self.num_experts
+        capacity = max(int(t * self.k * self.capacity_factor / e), self.k)
+        logits = self.router(tokens, context_ids)
+        w1, b1, w2, b2 = self.experts_w1, self.experts_b1, self.experts_w2, self.experts_b2
+
+        mode = resolve_dispatch(self.dispatch, t, e)
+        x = tokens.to(self.dtype)
+        if mode == "gmm":
+            raise NotImplementedError(
+                "dispatch='gmm' (the grouped GEMM, kernel B3) is not ported yet "
+                "(ROADMAP.md queue A item 4)")
+        if mode == "sweep":
+            topk_idx, gates, aux_loss, expert_load = route_top_k_dropless(logits, k=self.k)
+            out = moe_apply_sweep(x, topk_idx, gates, w1, b1, w2, b2)
+        elif mode == "dense":
+            r = route_top_k(logits, k=self.k, capacity=capacity)
+            expert_in = torch.einsum("tec,td->ecd", r.dispatch.to(x.dtype), x)
+            mid = F.silu(torch.bmm(expert_in, w1.to(x.dtype)) + b1.to(x.dtype))
+            expert_out = torch.bmm(mid, w2.to(x.dtype)) + b2.to(x.dtype)
+            out = torch.einsum("tec,ecd->td", r.combine.to(x.dtype), expert_out)
+            aux_loss, expert_load = r.aux_loss, r.expert_load
+        else:
+            if self.use_fused_ffn:
+                capacity = moe_kernels.round_up_capacity(capacity)
+            rd = route_top_k_sparse(logits, k=self.k, capacity=capacity)
+            out = moe_apply_sparse(x, rd, w1, b1, w2, b2, capacity=capacity,
+                                   use_fused_ffn=self.use_fused_ffn)
+            aux_loss, expert_load = rd.aux_loss, rd.expert_load
+        aux = {"moe_aux_loss": aux_loss, "expert_load": expert_load}
+        return tokens + out.to(tokens.dtype), aux

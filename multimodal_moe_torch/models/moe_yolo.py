@@ -1,0 +1,63 @@
+"""MoE-routed YOLO detector (PyTorch), fp path.
+
+Counterpart of ``multimodal_moe_tpu/models/moe_yolo.py``: the YOLO trunk
+(backbone + PAN neck), one context-routed :class:`.moe.MoEFFN` on each neck
+level (``moe_level{i}``), then the YOLO head and decode. Each spatial
+location of a level is a token, in NHWC row-major order; every token of an
+image carries the image's solar-context bin.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from .moe import NUM_SOLAR_BINS, MoEFFN
+from .yolo import YoloDetector, scaled_channels
+
+
+class MoEYoloDetector(YoloDetector):
+    """YOLO trunk + per-level context-routed MoE FFN + detect head.
+
+    ``forward(images, context_ids=None)`` takes NHWC float images and one
+    context bin per image (default: the "missing" bin) and returns the
+    YOLO outputs plus ``moe_aux_loss`` (the mean over levels) and
+    ``expert_load`` ``(3, E)``. The routers stay float32 in a bf16 model.
+    """
+
+    context_aware = True  # serving.make_serving_step passes context_ids
+
+    def __init__(self, num_classes: int = 1, variant: str = "s", num_experts: int = 4,
+                 k: int = 2, capacity_factor: float = 1.25, dispatch: str = "auto",
+                 dtype: torch.dtype = torch.float32, arch: str = "tpu",
+                 generator: "torch.Generator | None" = None):
+        super().__init__(num_classes, variant, dtype, arch, generator)
+        for i, c in enumerate(scaled_channels(variant)[2:5]):
+            moe = MoEFFN(c, num_experts, k=k, capacity_factor=capacity_factor, dtype=dtype,
+                         dispatch=dispatch, generator=generator)
+            self.add_module(f"moe_level{i}", moe.to(dtype))
+
+    def forward(self, images: torch.Tensor,
+                context_ids: "Optional[torch.Tensor]" = None) -> "Dict[str, torch.Tensor]":
+        b = images.shape[0]
+        if context_ids is None:
+            context_ids = torch.full((b,), NUM_SOLAR_BINS - 1, dtype=torch.long)
+        context_ids = context_ids.to(images.device, torch.long)
+        x = images.to(self.dtype).permute(0, 3, 1, 2)
+        feats = self.neck(self.backbone(x))
+
+        aux_total, loads, moe_feats = 0.0, [], []
+        for i, f in enumerate(feats):
+            bb, c, h, w = f.shape
+            tokens = f.permute(0, 2, 3, 1).reshape(bb * h * w, c)
+            token_ctx = torch.repeat_interleave(context_ids, h * w)
+            out_tokens, aux = getattr(self, f"moe_level{i}")(tokens, token_ctx)
+            moe_feats.append(out_tokens.reshape(bb, h, w, c).permute(0, 3, 1, 2))
+            aux_total = aux_total + aux["moe_aux_loss"]
+            loads.append(aux["expert_load"])
+
+        out = self._head_outputs(moe_feats, images)
+        out["moe_aux_loss"] = aux_total / len(feats)
+        out["expert_load"] = torch.stack(loads)                   # (levels, E)
+        return out

@@ -258,9 +258,12 @@ class YoloDetector(nn.Module):
         return self._anchor_cache[key]
 
     def forward(self, images: torch.Tensor) -> "Dict[str, torch.Tensor]":
-        b, img_h, img_w, _ = images.shape
         x = images.to(self.dtype).permute(0, 3, 1, 2)
-        feats = self.neck(self.backbone(x))
+        return self._head_outputs(self.neck(self.backbone(x)), images)
+
+    def _head_outputs(self, feats, images: torch.Tensor) -> "Dict[str, torch.Tensor]":
+        """Head maps → the five-key output dict, for input ``images``."""
+        img_h, img_w = images.shape[1:3]
         box_maps, cls_maps = self.head(feats)
 
         box_flat = [_flatten_nhwc(m) for m in box_maps]
