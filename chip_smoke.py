@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
 Phases (each prints one JSON line):
 
 1. device   -- the card's name and power limit (``nvidia-smi``).
-2. build    -- compiles ``multimodal_moe_torch/csrc/{nms_keep,ms_deform_fwd}.cu``
-               with nvcc, both at once, into ``multimodal_moe_torch/build/``;
-               build seconds and ptxas register and spill counts.
+2. build    -- compiles ``multimodal_moe_torch/csrc/{nms_keep,ms_deform_fwd,
+               ms_deform_bwd,moe_ffn_fwd}.cu`` with nvcc, all at once, into
+               ``multimodal_moe_torch/build/``; build seconds and ptxas
+               register and spill counts.
 3. nms_keep -- the NMS keep-mask kernel against its plain PyTorch version on
                the card: B=128 K=512 class-agnostic and B=16 K=1024 with 3
                classes, forced score ties, repeated boxes, boxes exactly at
@@ -79,6 +81,36 @@ Phases (each prints one JSON line):
                dropped-token share and expert load per level; then the kernel
                on the step's own three level buffers against its plain
                version, with times and bounds.
+11. ms_deform_bwd -- the deformable-attention backward kernel against its
+               plain version (dv, the per-corner sums s, and d_loc / d_attn
+               through the shared elementwise part) at the training shape
+               (B=16, Q=684, levels 88x156/44x78/22x39, NH=8, D=32, L=3, P=4,
+               locations in [-0.3, 1.3]), the shape of
+               tests/test_deformable_pallas.py (D=8), pixel centres and the
+               borders 0/1, and a contention case (every sample of a
+               (batch, head) on one location). Tolerances: dv and s within
+               2·n·u of the sum of the n absolute terms that make each
+               element (u = 2^-24: two summation orders), d_loc and d_attn
+               within 1e-5·max(1, max|ref|).
+12. rtdetr_train_fp32 -- one DetectionTrainer.train_step of RT-DETR r50vd
+               (scripts/train_rtdetr.py's model and optimizer, random
+               weights from seed 0) at B=1, 704x1248, 96 ground-truth
+               slots, fp32 with TF32 off, card against CPU with the same
+               augmentation and denoising draws; the CPU solves its own
+               assignment where the card's optimum is unique by more than
+               the card-CPU cost difference and replays the card's
+               elsewhere. Checks: the loss, each module's gradient, the
+               deformable projections' gradients finite and non-zero, and
+               ms_deform_fwd / ms_deform_bwd each launched exactly 6 times.
+13. rtdetr_train -- the training headline: the configuration of
+               scripts/train_rtdetr.py (B=16, 704x1248, AdamW lr 1e-4,
+               remat, 96 ground-truth slots, HSV jitter and flips), fp32 with
+               TF32 on: step ms, img/s, peak memory, the step's split
+               (forward / loss with the host matcher's own time / backward /
+               optimizer + EMA, CUDA events), 6 + 6 launches per step; B5 on
+               the step's own inputs against its plain version, with times
+               and bounds; then a learning check (one fixed batch, B=4, no
+               augmentation, warmup of 1 step: the loss falls over 20 steps).
 
 """
 
@@ -86,6 +118,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import json
 import re
 import subprocess
@@ -103,14 +136,24 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from multimodal_moe_torch import _build  # noqa: E402
+from multimodal_moe_torch.losses import hungarian as hungarian_module  # noqa: E402
 from multimodal_moe_torch.models import moe as moe_module  # noqa: E402
 from multimodal_moe_torch.models import rtdetr as rtdetr_module  # noqa: E402
 from multimodal_moe_torch.models.moe_yolo import MoEYoloDetector  # noqa: E402
-from multimodal_moe_torch.models.rtdetr import RTDETRDetector, anchors_for  # noqa: E402
+from multimodal_moe_torch.models.rtdetr import (  # noqa: E402
+    RTDETRDetector,
+    anchors_for,
+    rtdetr_loss,
+)
 from multimodal_moe_torch.models.yolo import YoloDetector  # noqa: E402
 from multimodal_moe_torch.ops import deformable_kernel, moe_kernels, nms_kernel  # noqa: E402
+from multimodal_moe_torch.ops.assignment import assignment_margin  # noqa: E402
+from multimodal_moe_torch.ops.augment import augment_draws  # noqa: E402
 from multimodal_moe_torch.ops.deformable import (  # noqa: E402
+    _corners,
     level_shapes_to_offsets,
+    ms_deform_attn_bwd_plain,
+    ms_deform_attn_loc_attn_grads,
     ms_deformable_attention,
 )
 from multimodal_moe_torch.ops.nms import (  # noqa: E402
@@ -125,6 +168,7 @@ from multimodal_moe_torch.serving import (  # noqa: E402
     make_serving_step,
     yolo_serving_nms,
 )
+from multimodal_moe_torch.train.detection import DetectionTrainer, DetTrainConfig  # noqa: E402
 
 IMG_H, IMG_W = 704, 1248
 POOL, IOU, SCORE_THR, MAX_DET = 512, 0.7, 0.001, 300
@@ -134,7 +178,7 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12  # dense tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 IOU_FLOPS = 14  # min/max/sub/mul/add/div/compare per pair, areas amortised
-KERNELS = ("nms_keep", "ms_deform_fwd", "moe_ffn_fwd")
+KERNELS = ("nms_keep", "ms_deform_fwd", "ms_deform_bwd", "moe_ffn_fwd")
 # RT-DETR headline (bench.py: RT_B=16 at the protocol resolution).
 RT_B, RT_QUERIES, RT_LAYERS = 16, 300, 6
 RT_LEVELS = ((IMG_H // 8, IMG_W // 8), (IMG_H // 16, IMG_W // 16), (IMG_H // 32, IMG_W // 32))
@@ -568,13 +612,17 @@ def patched(module, name, make):
         setattr(module, name, real)
 
 
-def topk_selection(module, record: "list | None" = None, replay: "list | None" = None):
+def topk_selection(module, record: "list | None" = None, replay: "list | None" = None,
+                   scores_seen: "list | None" = None):
     """Wrap ``module.stable_topk`` (RTDETRDetector's query selection, the MoE
     routers' expert choice): append the indices each call picks to
     ``record``, or make the calls pick ``replay``'s, in order, so that two
-    forwards select the same queries or experts."""
+    forwards select the same queries or experts; append the scores each
+    call selects from to ``scores_seen``."""
     def make(real):
         def select(scores, k):
+            if scores_seen is not None:
+                scores_seen.append(scores.detach().float().cpu())
             if replay is None:
                 picked = real(scores, k)
                 record.append(picked[1])
@@ -759,6 +807,469 @@ def phase_rtdetr_serving(dev, smi: str, dtype) -> "tuple[dict, dict]":
     rec["kernel_on_step_inputs"] = main
     emit(rec)
     check_deform(main, f"ms_deform_fwd on the {rec['dtype']} step's inputs")
+    return rec, main
+
+
+# --------------------------------------------------------------------------
+# RT-DETR training and the deformable-attention backward
+# --------------------------------------------------------------------------
+
+RT_MAX_BOXES, RT_DN_GROUPS = 96, 2                          # scripts/train_rtdetr.py
+RT_TRAIN_Q = RT_QUERIES + 2 * RT_DN_GROUPS * RT_MAX_BOXES   # 684 decoder queries
+RT_STEPS_PER_EPOCH = 1000   # the schedule's length; the timed steps sit in the warmup
+U32 = 2.0 ** -24            # float32 unit roundoff
+
+
+def deform_bwd_tolerances(values, levels, loc, attn, g):
+    """Per-element bounds for two summation orders, 2·n·u·Σ|terms| with n
+    the number of terms: for dv, the corner contributions that land on each
+    value row (counted row by row); for s, the D products of each dot."""
+    b, total, nh, d = values.shape
+    dv_abs, _ = ms_deform_attn_bwd_plain(values, levels, loc, attn, g.abs())
+    _, s_abs = ms_deform_attn_bwd_plain(values.abs(), levels, loc, attn, g.abs())
+    counts = torch.zeros(b * total * nh, device=values.device)
+    batch = torch.arange(b, device=values.device).view(b, 1, 1, 1, 1)
+    head = torch.arange(nh, device=values.device).view(1, 1, nh, 1, 1)
+    for _, _, _, inside, flat_idx in _corners(levels, loc):
+        rows = ((batch * total + flat_idx) * nh + head)[inside]
+        counts.index_add_(0, rows, torch.ones(rows.shape, device=values.device))
+    return 2 * counts.view(b, total, nh, 1) * U32 * dv_abs, 2 * d * U32 * s_abs
+
+
+def deform_bwd_compare(values, levels, loc, attn, g) -> dict:
+    """B5 (and the shared elementwise part) against the plain backward on
+    the same inputs; the numbers are returned before any check can raise."""
+    dv, s = deformable_kernel.ms_deform_attn_bwd(values, levels, loc, attn, g)
+    ref_dv, ref_s = ms_deform_attn_bwd_plain(values, levels, loc, attn, g)
+    grads = ms_deform_attn_loc_attn_grads(levels, loc, attn, s)
+    ref_grads = ms_deform_attn_loc_attn_grads(levels, loc, attn, ref_s)
+    dv_tol, s_tol = deform_bwd_tolerances(values, levels, loc, attn, g)
+    torch.cuda.synchronize()
+    rec = {"finite": bool(torch.isfinite(dv).all()) and bool(torch.isfinite(s).all()),
+           "tolerance": "dv, s: 2·n·u·Σ|terms| per element; d_loc, d_attn: 1e-5·max(1, max|ref|)"}
+    for name, got, ref, tol in (("dv", dv, ref_dv, dv_tol), ("s", s, ref_s, s_tol)):
+        d = (got - ref).abs()
+        rec[f"{name}_max_abs_err"] = float(d.max())
+        rec[f"{name}_err_over_tolerance"] = float(torch.where(d == 0, 0.0, d / tol).max())
+        rec[f"{name}_within_tolerance"] = bool((d <= tol).all())
+    for name, got, ref in zip(("d_loc", "d_attn"), grads, ref_grads):
+        d = float((got - ref).abs().max())
+        rec[f"{name}_max_abs_err"] = d
+        rec[f"{name}_within_tolerance"] = d <= 1e-5 * max(1.0, float(ref.abs().max()))
+    rec["max_abs_err"] = max(rec["dv_max_abs_err"], rec["s_max_abs_err"])
+    rec["dv_rows_written"] = int((ref_dv.abs().amax(-1) > 0).sum())
+    del dv, s, ref_dv, ref_s, dv_tol, s_tol
+    return rec
+
+
+def check_deform_bwd(rec: dict, what: str) -> None:
+    check(rec["finite"], f"{what}: finite kernel outputs")
+    for name in ("dv", "s", "d_loc", "d_attn"):
+        check(rec[f"{name}_within_tolerance"], f"{what}: {name} kernel vs plain")
+
+
+def deform_bwd_bound(values, levels, loc, attn) -> dict:
+    """Least time for B5's function on these inputs: the value rows that
+    in-bounds corners sample, g, loc and attn read once, s and dv written
+    once (dv is the size of ``values``), over the memory rate; or each
+    in-bounds corner's dot and add (4·D flops) and each point's geometry
+    over the fp32 rate."""
+    fwd = deform_bound(values, levels, loc, attn)   # rows, loc, attn, and g's size
+    nbytes = fwd["bytes"] + 4 * (attn.numel() * 4 + values.numel())
+    flops = fwd["corners_in_bounds"] * 4 * values.shape[3] + attn.numel() * DEFORM_POINT_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "dv_bytes": 4 * values.numel(), "flops": flops,
+            "value_rows_read": fwd["value_rows_read"], "corners_in_bounds": fwd["corners_in_bounds"]}
+
+
+def deform_bwd_times(values, levels, loc, attn, g) -> dict:
+    bound = deform_bwd_bound(values, levels, loc, attn)
+    bwd = deformable_kernel.ms_deform_attn_bwd
+    kernel_ms = cuda_ms(lambda: bwd(values, levels, loc, attn, g), reps=10, warmup=2)
+    _, s = bwd(values, levels, loc, attn, g)
+    elementwise_ms = cuda_ms(lambda: ms_deform_attn_loc_attn_grads(levels, loc, attn, s), reps=10)
+    plain_ms = cuda_ms(lambda: ms_deform_attn_bwd_plain(values, levels, loc, attn, g), reps=3,
+                       warmup=1)
+    # The library yardstick: autograd's backward through the grid_sample
+    # formulation, which yields dv, d_loc and d_attn (B5 + the elementwise part).
+    inputs = [t.detach().requires_grad_() for t in (values, loc, attn)]
+    out = grid_sample_deform(inputs[0], levels, inputs[1], inputs[2])
+    library_ms = cuda_ms(lambda: torch.autograd.grad(out, inputs, g, retain_graph=True), reps=5)
+    lib_dv = torch.autograd.grad(out, inputs, g, retain_graph=True)[0]
+    ref_dv, _ = ms_deform_attn_bwd_plain(values, levels, loc, attn, g)
+    lib_err = float((lib_dv - ref_dv).abs().max())
+    del out, inputs, lib_dv, ref_dv, s
+    return {"kernel_ms": kernel_ms, "elementwise_ms": elementwise_ms,
+            "backward_ms": kernel_ms + elementwise_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_dv_max_abs_err": lib_err, **bound,
+            "achieved_gb_per_s": bound["bytes"] / kernel_ms / 1e6}
+
+
+def phase_deform_bwd(dev) -> dict:
+    cases = {
+        "training_shape": (RT_LEVELS, RT_B, RT_NH, RT_D, RT_P, RT_TRAIN_Q, "uniform"),
+        "test_shape": (((8, 12), (4, 6), (2, 3)), 2, 2, 8, 4, 7, "uniform"),
+        "centres_and_borders": (RT_LEVELS, 2, RT_NH, RT_D, RT_P, RT_TRAIN_Q, "grid"),
+        "contention": (RT_LEVELS, 2, RT_NH, RT_D, RT_P, RT_TRAIN_Q, "one_location"),
+    }
+    report = {}
+    for seed, (name, (levels, b, nh, d, p, q, mode)) in enumerate(cases.items()):
+        values, loc, attn = deform_problem(levels, b, nh, d, p, q, 20 + seed, dev,
+                                           "grid" if mode == "grid" else "uniform")
+        if mode == "one_location":   # every sample of a (batch, head) on one spot
+            loc = torch.tensor([0.37, 0.61], device=dev).expand_as(loc).contiguous()
+        gen = torch.Generator(device=dev).manual_seed(30 + seed)
+        g = torch.randn((b, q, nh * d), generator=gen, device=dev)
+        rec = {"levels": levels, "B": b, "NH": nh, "D": d, "P": p, "Q": q, "loc": mode,
+               **deform_bwd_compare(values, levels, loc, attn, g)}
+        if name == "training_shape":
+            rec.update(deform_bwd_times(values, levels, loc, attn, g))
+        report[name] = rec
+        del values, loc, attn, g
+        torch.cuda.empty_cache()
+    emit({"phase": "ms_deform_bwd", "cases": report})
+    for name, rec in report.items():
+        check_deform_bwd(rec, f"ms_deform_bwd {name}")
+    return report
+
+
+def rtdetr_trainer(dev, b: int, template=None, **cfg_kw) -> DetectionTrainer:
+    """scripts/train_rtdetr.py's model and trainer: r50vd, hidden 256, 300
+    queries, 6 decoder layers, remat, AdamW lr 1e-4 flat after a 1-epoch
+    warmup, weight decay 1e-4; random weights from seed 0."""
+    if template is None:
+        template = RTDETRDetector(num_classes=1, hidden_dim=256, num_queries=RT_QUERIES,
+                                  num_decoder_layers=RT_LAYERS, remat=True,
+                                  generator=torch.Generator().manual_seed(0))
+    cfg = DetTrainConfig(**{**dict(variant="r50vd", img_h=IMG_H, img_w=IMG_W, batch=b, lr0=1e-4,
+                                   lrf=1.0, optimizer="adamw", weight_decay=1e-4,
+                                   warmup_epochs=1.0), **cfg_kw})
+    return DetectionTrainer(template, cfg, loss_fn=functools.partial(rtdetr_loss,
+                                                                     img_hw=(IMG_H, IMG_W)),
+                            steps_per_epoch=RT_STEPS_PER_EPOCH, device=dev)
+
+
+def rt_train_batch(b: int, seed: int, dev) -> dict:
+    """Seeded uint8 frames and 96 ground-truth slots per frame, 4–23 of
+    them pedestrians (boxes 8–120 px wide, 16–200 px tall at 704×1248)."""
+    rng = np.random.default_rng(seed)
+    m = RT_MAX_BOXES
+    w = rng.uniform(8 / 1248, 120 / 1248, (b, m)) * IMG_W
+    h = rng.uniform(16 / 704, 200 / 704, (b, m)) * IMG_H
+    x1, y1 = rng.uniform(0, 1, (b, m)) * (IMG_W - 1 - w), rng.uniform(0, 1, (b, m)) * (IMG_H - 1 - h)
+    boxes = np.stack([x1, y1, x1 + w, y1 + h], -1).astype(np.float32)
+    mask = np.arange(m)[None] < rng.integers(4, 24, (b, 1))
+    boxes[~mask] = 0.0
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return {"image": random_images(b, seed, dev), "gt_boxes": t(boxes),
+            "gt_labels": t(np.zeros((b, m), np.int32)), "gt_mask": t(mask)}
+
+
+def decoder_io(model, store: dict) -> list:
+    """Hooks that keep each decoder layer's inputs and its output's
+    gradient (the cotangent the rest of the step sends back into it)."""
+    def keep(li):
+        def hook(module, args, kwargs, out):
+            rec = store.setdefault(li, {})
+            rec["args"] = tuple(a.detach() if torch.is_tensor(a) else a for a in args)
+            rec["attn_mask"] = kwargs.get("attn_mask")
+            out.register_hook(lambda g: rec.update(grad=g.detach()))
+        return hook
+    return [getattr(model, f"decoder{li}").register_forward_hook(keep(li), with_kwargs=True)
+            for li in range(RT_LAYERS)]
+
+
+def run_train_step(trainer, batch, draws=None, assign=None, layer_io=None) -> dict:
+    """One ``train_step`` from a fresh state: the loss, its metrics and the
+    gradients handed to the optimizer (on the host), with the matcher
+    wrapped by ``assign(real)`` when given; each decoder layer's inputs and
+    output gradient into ``layer_io`` when given."""
+    state = trainer.init_state()
+    grads = {}
+    apply = state.apply_gradients
+
+    def capture(g):
+        grads.update({k: v.detach().float().cpu() for k, v in g.items()})
+        return apply(g)
+
+    state.apply_gradients = capture
+    hooks = decoder_io(state.model, layer_io) if layer_io is not None else []
+    with contextlib.ExitStack() as stack:
+        if assign is not None:
+            stack.enter_context(patched(hungarian_module, "batched_lsa_assign", assign))
+        _, metrics = trainer.train_step(state, batch, draws=draws)
+    for h in hooks:
+        h.remove()
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": grads,
+            "model": state.model}
+
+
+def rel_err(got: dict, ref: dict) -> float:
+    """‖got − ref‖ / ‖ref‖ over all tensors of the two dicts together."""
+    diff = sum(float(((got[k] - ref[k]).double() ** 2).sum()) for k in ref)
+    norm = sum(float((ref[k].double() ** 2).sum()) for k in ref)
+    return (diff / max(norm, 1e-30)) ** 0.5
+
+
+def decoder_layer_replay(template, layer_io: dict, card_grads: dict) -> dict:
+    """Each decoder layer of the card's step again on the CPU, on the card's
+    own inputs and output gradient: the layer's parameter gradients (its
+    kernels B4 and B5 in place, against the plain versions) compared with
+    the card's."""
+    errs = {}
+    for li, rec in sorted(layer_io.items()):
+        layer = copy.deepcopy(getattr(template, f"decoder{li}")).train()
+        args = tuple(a.cpu() if torch.is_tensor(a) else a for a in rec["args"])
+        mask = rec["attn_mask"].cpu() if rec["attn_mask"] is not None else None
+        layer(*args, attn_mask=mask).backward(rec["grad"].cpu())
+        cpu = {f"decoder{li}.{k}": p.grad for k, p in layer.named_parameters()}
+        errs[f"decoder{li}"] = rel_err({k: card_grads[k] for k in cpu}, cpu)
+    return errs
+
+
+def phase_rtdetr_train_fp32(dev) -> dict:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, m = 1, RT_MAX_BOXES
+    trainer = rtdetr_trainer(dev, b)
+    cpu_trainer = rtdetr_trainer(torch.device("cpu"), b, template=trainer.model)
+    batch = rt_train_batch(b, seed=9, dev=dev)
+    gen = torch.Generator().manual_seed(10)
+    draws = {"augment": augment_draws(b, gen, torch.device("cpu")),
+             "denoise": (torch.rand((b, 2 * RT_DN_GROUPS, m, 2), generator=gen) * 2 - 1,
+                         torch.rand((b, 2 * RT_DN_GROUPS, m, 2), generator=gen) - 0.5)}
+    to_dev = lambda t: t.to(dev)  # noqa: E731
+    card_draws = {"augment": {k: to_dev(v) for k, v in draws["augment"].items()},
+                  "denoise": tuple(map(to_dev, draws["denoise"]))}
+    solved = {}
+
+    def record(real):
+        def assign(cost, col_valid=None):
+            out = real(cost, col_valid)
+            solved.update(cost=cost.cpu().numpy(), assigned=out.cpu().numpy(),
+                          valid=col_valid.cpu().numpy())
+            return out
+        return assign
+
+    before = (deformable_kernel.ms_deform_fwd_launches, deformable_kernel.ms_deform_bwd_launches)
+    picked, enc, layer_io = [], {"card": [], "cpu": []}, {}
+    with topk_selection(rtdetr_module, record=picked, scores_seen=enc["card"]):
+        card = run_train_step(trainer, batch, card_draws, record, layer_io=layer_io)
+    torch.cuda.synchronize()
+    launches = (deformable_kernel.ms_deform_fwd_launches - before[0],
+                deformable_kernel.ms_deform_bwd_launches - before[1])
+    replay = {}
+
+    def own_where_defined(real):
+        """The CPU's own solve where the card's optimum is unique by more
+        than 2·(valid columns)·(largest card-CPU cost difference); the
+        card's assignment elsewhere."""
+        def assign(cost, col_valid=None):
+            own = real(cost, col_valid).numpy()
+            delta = float(np.abs(cost.numpy() - solved["cost"]).max())
+            defined = np.array([assignment_margin(c, v) > 2 * v.sum() * delta
+                                for c, v in zip(solved["cost"], solved["valid"])])
+            replay.update(problems=len(defined), well_defined=int(defined.sum()), cost_delta=delta,
+                          same_where_defined=bool((own[defined] == solved["assigned"][defined])
+                                                  .all()))
+            return torch.from_numpy(np.where(defined[:, None], own, solved["assigned"]))
+        return assign
+
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    # The CPU decodes the card's top-300 queries, whatever its own scores pick.
+    cpu_io = {}
+    with topk_selection(rtdetr_module, replay=[picked[0].cpu()], scores_seen=enc["cpu"]):
+        cpu = run_train_step(cpu_trainer, cpu_batch, draws, own_where_defined, layer_io=cpu_io)
+    # How far the two forwards drift apart: the encoder memory, and the
+    # queries entering each decoder layer (max |card − cpu|, max |cpu|).
+    drift = lambda a, b: [float((a.cpu() - b).abs().max()), float(b.abs().max())]  # noqa: E731
+    divergence = {"memory": drift(layer_io[0]["args"][3], cpu_io[0]["args"][3])}
+    divergence.update({f"decoder{li}_query_in": drift(layer_io[li]["args"][0],
+                                                       cpu_io[li]["args"][0])
+                       for li in range(RT_LAYERS)})
+    card_scores, cpu_scores = enc["card"][0], enc["cpu"][0]
+    score_diff = float((card_scores - cpu_scores).abs().max())
+    srt = torch.sort(cpu_scores, dim=-1, descending=True).values[0, : RT_QUERIES + 1]
+    selection = {"same_top300": torch.equal(stable_topk(cpu_scores, RT_QUERIES)[1],
+                                            picked[0].cpu()),
+                 "top300_defined": bool((srt[:-1] - srt[1:]).min() > 2 * score_diff),
+                 "enc_scores_max_abs": score_diff, "decoded_queries": "the card's top-300 on both"}
+
+    groups = {}
+    for k in cpu["grads"]:
+        groups.setdefault(k.split(".")[0], []).append(k)
+    step_errs = {g: rel_err({k: card["grads"][k] for k in keys}, {k: cpu["grads"][k] for k in keys})
+                 for g, keys in groups.items()}
+    layer_errs = decoder_layer_replay(trainer.model, layer_io, card["grads"])
+    deform_grads = {k: (bool(torch.isfinite(v).all()), float(v.abs().max()))
+                    for k, v in card["grads"].items()
+                    if any(n in k for n in ("value_proj", "sampling_offsets", "attention_weights"))}
+    rec = {"phase": "rtdetr_train_fp32", "model": "rtdetr r50vd arch=tpu remat", "batch": b,
+           "img_hw": [IMG_H, IMG_W], "gt_slots": m, "gt_valid": int(batch["gt_mask"].sum()),
+           "decoder_queries": RT_TRAIN_Q,
+           "launches_per_step": {"ms_deform_fwd": launches[0], "ms_deform_bwd": launches[1]},
+           "loss": {"card": card["metrics"]["loss"], "cpu": cpu["metrics"]["loss"]},
+           "metrics_card": card["metrics"], "metrics_cpu": cpu["metrics"], "matching": replay,
+           "selection": selection,
+           "step_grad_rel_err_by_module": step_errs, "forward_divergence": divergence,
+           "decoder_layer_grad_rel_err": layer_errs,
+           "tolerance": ("each decoder layer on the card's own inputs and output gradient: "
+                         "‖card − cpu‖ ≤ 1e-4·‖cpu‖ over its parameter gradients; the whole "
+                         "step's loss rtol 1e-2 (random weights and train-mode batch statistics "
+                         "make the decoder chaotic: card-CPU differences grow 2-3x per layer)"),
+           "deform_projection_grads_finite_nonzero": all(f and a > 0 for f, a in deform_grads.values()),
+           **tf32_state()}
+    emit(rec)
+    check(launches == (RT_LAYERS, RT_LAYERS),
+          f"train step launched ms_deform_fwd / ms_deform_bwd {launches} times, not 6 and 6")
+    check(len(deform_grads) == 3 * 2 * RT_LAYERS and rec["deform_projection_grads_finite_nonzero"],
+          "value_proj / sampling_offsets / attention_weights gradients finite and non-zero")
+    check(replay["same_where_defined"], "card and CPU assignments equal where well defined")
+    check(selection["same_top300"] or not selection["top300_defined"],
+          "card vs CPU top-300 selection where it is well defined")
+    check(abs(rec["loss"]["card"] - rec["loss"]["cpu"]) <= 1e-2 * abs(rec["loss"]["cpu"]),
+          "card vs CPU loss")
+    check(len(layer_errs) == RT_LAYERS, "every decoder layer replayed")
+    for layer, e in layer_errs.items():
+        check(e <= 1e-4, f"card vs CPU gradient of {layer} on the card's inputs: {e:.2e}")
+    del trainer, cpu_trainer, card, cpu, layer_io, cpu_io
+    torch.cuda.empty_cache()
+    return rec
+
+
+class StepSplit:
+    """CUDA events around the parts of one ``train_step``: forward (model
+    hooks), loss (the loss function), backward (loss end to optimizer
+    start), optimizer + EMA (``apply_gradients``); and the host matcher's
+    own time (after a synchronize, so that it excludes the forward)."""
+
+    def __init__(self, trainer, state):
+        self.events, self.matcher_ms = {}, []
+        self.trainer, self.state = trainer, state
+
+    def mark(self, name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        self.events[name] = e
+
+    def run(self, batch) -> dict:
+        model, real_loss, apply = self.state.model, self.trainer.loss_fn, self.state.apply_gradients
+        hooks = [model.register_forward_pre_hook(lambda *a: self.mark("forward0")),
+                 model.register_forward_hook(lambda *a: self.mark("forward1"))]
+
+        def loss_fn(*a, **k):
+            self.mark("loss0")
+            out = real_loss(*a, **k)
+            self.mark("loss1")
+            return out
+
+        def matcher(real):
+            def assign(cost, col_valid=None):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real(cost, col_valid)
+                self.matcher_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return assign
+
+        def step_apply(grads):
+            self.mark("opt0")
+            out = apply(grads)
+            self.mark("opt1")
+            return out
+
+        self.trainer.loss_fn, self.state.apply_gradients = loss_fn, step_apply
+        try:
+            with patched(hungarian_module, "batched_lsa_assign", matcher):
+                self.mark("step0")
+                self.trainer.train_step(self.state, batch)
+                self.mark("step1")
+            torch.cuda.synchronize()
+        finally:
+            self.trainer.loss_fn = real_loss
+            del self.state.apply_gradients
+            for h in hooks:
+                h.remove()
+        ev = self.events
+        span = lambda a, b: ev[a].elapsed_time(ev[b])  # noqa: E731
+        return {"step_ms": span("step0", "step1"), "augment_ms": span("step0", "forward0"),
+                "forward_ms": span("forward0", "forward1"), "loss_ms": span("loss0", "loss1"),
+                "matcher_host_ms": self.matcher_ms[-1], "backward_ms": span("loss1", "opt0"),
+                "optimizer_ema_ms": span("opt0", "opt1")}
+
+
+def recording_bwd(record: list):
+    """Keep the arguments of the first B5 call (the last decoder layer's)."""
+    def make(real):
+        def bwd(*args):
+            if not record:
+                record.append(args)
+            return real(*args)
+        return bwd
+    return patched(deformable_kernel, "ms_deform_attn_bwd", make)
+
+
+def phase_rtdetr_train(dev, smi: str) -> "tuple[dict, dict]":
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    trainer = rtdetr_trainer(dev, RT_B)
+    state = trainer.init_state()
+    batch = rt_train_batch(RT_B, seed=11, dev=dev)
+
+    # The main path: the counts from zero over one train step.
+    bwd_args = []
+    deformable_kernel.ms_deform_fwd_launches = 0
+    deformable_kernel.ms_deform_bwd_launches = 0
+    with recording_bwd(bwd_args):
+        _, metrics = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+    launches = (deformable_kernel.ms_deform_fwd_launches, deformable_kernel.ms_deform_bwd_launches)
+    first_loss = float(metrics["loss"])
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = cuda_ms(lambda: trainer.train_step(state, batch), reps=5, warmup=1)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    splits = [StepSplit(trainer, state).run(batch) for _ in range(3)]
+    split = {k: float(np.mean([sp[k] for sp in splits])) for k in splits[0]}
+    rec = {"phase": "rtdetr_train", "model": "rtdetr r50vd arch=tpu remat",
+           "config": "scripts/train_rtdetr.py:149-173 (B=16, AdamW lr 1e-4, wd 1e-4, "
+                     "96 GT slots, HSV + hflip)", "batch": RT_B, "img_hw": [IMG_H, IMG_W],
+           "decoder_queries": RT_TRAIN_Q, "step_ms": step_ms, "img_per_s": RT_B * 1000.0 / step_ms,
+           "peak_mem_gib": peak_gib, "split": split,
+           "launches_per_step": {"ms_deform_fwd": launches[0], "ms_deform_bwd": launches[1]},
+           "first_loss": first_loss, "gt_valid": int(batch["gt_mask"].sum()), "gpu": smi,
+           **tf32_state()}
+    values, levels, loc, attn, g = (a.detach() if torch.is_tensor(a) else a for a in bwd_args[0])
+    main = {"shape": {"B": RT_B, "sum_hw": values.shape[1], "NH": values.shape[2],
+                      "D": values.shape[3], "L": attn.shape[3], "P": attn.shape[4],
+                      "Q": attn.shape[1]},
+            "launches": launches[1], **deform_bwd_compare(values, levels, loc, attn, g),
+            **deform_bwd_times(values, levels, loc, attn, g)}
+    rec["kernel_on_step_inputs"] = main
+    del bwd_args, values, loc, attn, g, state, trainer, batch
+    torch.cuda.empty_cache()
+
+    # Learning check: one fixed batch, B=4, no augmentation, lr 0 then 1e-4.
+    trainer4 = rtdetr_trainer(dev, 4, warmup_epochs=0.0, hsv_aug=False, hflip_prob=0.0)
+    state4 = trainer4.init_state()
+    batch4 = rt_train_batch(4, seed=12, dev=dev)
+    losses = [float(trainer4.train_step(state4, batch4)[1]["loss"]) for _ in range(20)]
+    rec["learning_check"] = {"batch": 4, "steps": 20, "losses": losses,
+                             "first5_mean": float(np.mean(losses[:5])),
+                             "last5_mean": float(np.mean(losses[-5:]))}
+    del trainer4, state4, batch4
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit(rec)
+    check(launches == (RT_LAYERS, RT_LAYERS),
+          f"training step launched ms_deform_fwd / ms_deform_bwd {launches} times, not 6 and 6")
+    check(np.isfinite(first_loss) and np.isfinite(losses).all(), "finite training losses")
+    check_deform_bwd(main, "ms_deform_bwd on the training step's inputs")
+    check(rec["learning_check"]["last5_mean"] < rec["learning_check"]["first5_mean"]
+          and losses[-1] < losses[0], "the loss falls over 20 steps on a fixed batch")
     return rec, main
 
 
@@ -1143,6 +1654,9 @@ def main() -> int:
     _, fp32_err = phase_rtdetr_fp32(dev)
     phase_rtdetr_serving(dev, smi, torch.float32)
     _, main = phase_rtdetr_serving(dev, smi, torch.bfloat16)
+    bwd_cases = phase_deform_bwd(dev)
+    train_fp32 = phase_rtdetr_train_fp32(dev)
+    train, bwd_main = phase_rtdetr_train(dev, smi)
     deform_entry = {
         "name": "ms_deform_fwd", "route": "cuda",
         "source": "multimodal_moe_torch/csrc/ms_deform_fwd.cu",
@@ -1153,6 +1667,20 @@ def main() -> int:
         "ms": main["kernel_ms"], "kernel_ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
+        "training_launches_per_step": train["launches_per_step"]["ms_deform_fwd"],
+        "training_queries": RT_TRAIN_Q,
+    }
+    bwd_entry = {
+        "name": "ms_deform_bwd", "route": "cuda",
+        "source": "multimodal_moe_torch/csrc/ms_deform_bwd.cu",
+        "replaces": "multimodal_moe_tpu/ops/deformable_pallas.py:114 (_bwd_kernel)",
+        "shape": bwd_main["shape"], "launches": bwd_main["launches"],
+        "max_abs_err": max([bwd_main["max_abs_err"]] + [c["max_abs_err"] for c in bwd_cases.values()]),
+        "ms": bwd_main["kernel_ms"], "kernel_ms": bwd_main["kernel_ms"],
+        "plain_ms": bwd_main["plain_ms"], "bound_ms": bwd_main["bound_ms"],
+        "bound_by": bwd_main["bound_by"], "library_ms": bwd_main["library_ms"],
+        "backward_ms": bwd_main["backward_ms"],
+        "card_vs_cpu_decoder_layer_grads": train_fp32["decoder_layer_grad_rel_err"],
     }
 
     ffn_cases = phase_moe_ffn(dev)
@@ -1162,7 +1690,7 @@ def main() -> int:
         per_level, moe_serving["routes"]["fused"]["moe_ffn_fwd_launches"],
         [fp32_ffn_err] + [c["max_abs_err"] for c in ffn_cases.values()]
         + [lv["max_abs_err"] for lv in per_level])
-    emit({"kernels": [nms_entry, deform_entry, ffn_entry]})
+    emit({"kernels": [nms_entry, deform_entry, bwd_entry, ffn_entry]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

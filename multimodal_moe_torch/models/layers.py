@@ -4,7 +4,9 @@ Counterpart of ``multimodal_moe_tpu/models/layers.py``. Submodules carry the
 names Flax gives them (``ConvBNAct_0``, ``Bottleneck_1``, ``conv``, ``bn``)
 so that ``convert.flax_to_state_dict`` maps a Flax tree onto these modules
 name for name and ``load_state_dict(strict=True)`` catches any miss.
-Convs use explicit symmetric padding, BatchNorm eps 1e-3, SiLU.
+Convs use explicit symmetric padding, BatchNorm eps 1e-3, SiLU. In train
+mode every BatchNorm of the port is :class:`FlaxBatchNorm2d`: Flax's batch
+statistics and running-average rule.
 """
 
 from __future__ import annotations
@@ -56,6 +58,37 @@ def lecun_normal_(w: torch.Tensor, generator: "torch.Generator | None" = None):
     return w
 
 
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with Flax's train-mode rule; eval mode is torch's.
+
+    Train mode normalises with the float32 batch statistics of Flax's
+    ``use_fast_variance``: ``var = max(0, E[x²] − E[x]²)``, then
+    ``(x − mean)·(rsqrt(var + eps)·scale) + bias``, and moves the running
+    averages by ``m·ra + (1 − m)·stat`` with Flax's momentum ``m = 1 −
+    self.momentum`` and the *biased* batch variance (torch's own train mode
+    puts the unbiased one there). ``update_stats = False`` normalises the same
+    way and leaves the running averages alone: a block that ``remat``
+    recomputes during backward commits them once, as ``nn.remat`` does.
+    """
+
+    update_stats = True
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        xf = x.float()
+        mean = xf.mean((0, 2, 3))
+        var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        if self.update_stats:
+            m = 1.0 - self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[None, :, None, None]) * mul[None, :, None, None]
+        return (y + self.bias[None, :, None, None]).to(x.dtype)
+
+
 class ConvBNAct(nn.Module):
     """Conv → BatchNorm (running statistics in eval) → SiLU."""
 
@@ -66,7 +99,7 @@ class ConvBNAct(nn.Module):
         self.conv = nn.Conv2d(cin, features, kernel_size, strides, p,
                               groups=groups, bias=False)
         # Flax momentum 0.97 on the running average is torch momentum 0.03.
-        self.bn = nn.BatchNorm2d(features, eps=BN_EPS, momentum=0.03)
+        self.bn = FlaxBatchNorm2d(features, eps=BN_EPS, momentum=0.03)
         self.act = act
 
     def forward(self, x):

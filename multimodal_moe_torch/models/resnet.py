@@ -4,16 +4,22 @@ deep 3-conv stem and bottleneck stages with the avg-pool shortcut.
 Counterpart of ``multimodal_moe_tpu/models/resnet.py``. Submodules carry the
 Flax names (``_ConvBN_0``, ``Conv_0``, ``BatchNorm_0``,
 ``BottleneckBlock_{i}``). This family's BatchNorm is eps 1e-5 with ReLU, not
-the eps 1e-3 / SiLU of ``layers.ConvBNAct``.
+the eps 1e-3 / SiLU of ``layers.ConvBNAct``. ``remat=True`` recomputes each
+bottleneck block during backward (``torch.utils.checkpoint``, the JAX
+model's ``nn.remat``); the recompute leaves the running statistics alone.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from .layers import FlaxBatchNorm2d
 
 BN_EPS = 1e-5
 
@@ -26,7 +32,7 @@ class _ConvBN(nn.Module):
         super().__init__()
         self.Conv_0 = nn.Conv2d(cin, features, kernel, strides, kernel // 2, bias=False)
         # Flax momentum 0.9 on the running average is torch momentum 0.1.
-        self.BatchNorm_0 = nn.BatchNorm2d(features, eps=BN_EPS, momentum=0.1)
+        self.BatchNorm_0 = FlaxBatchNorm2d(features, eps=BN_EPS, momentum=0.1)
         self.act = act
 
     def forward(self, x):
@@ -72,8 +78,10 @@ class ResNet(nn.Module):
     ``vd=True, num_classes=None``): returns the four stage maps, strides
     4/8/16/32."""
 
-    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), width: int = 64):
+    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), width: int = 64,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         # Deep stem: three 3×3 convs.
         self._ConvBN_0 = _ConvBN(3, width // 2, 3, 2)
         self._ConvBN_1 = _ConvBN(width // 2, width // 2, 3, 1)
@@ -96,11 +104,31 @@ class ResNet(nn.Module):
         x = self._ConvBN_2(self._ConvBN_1(self._ConvBN_0(x)))
         x = F.max_pool2d(x, 3, 2, 1)
         feats = []
+        recompute = self.remat and self.training and torch.is_grad_enabled()
         for names in self._stages:
             for name in names:
-                x = getattr(self, name)(x)
+                block = getattr(self, name)
+                if recompute:
+                    x = checkpoint(block, x, use_reentrant=False,
+                                   context_fn=lambda b=block: (contextlib.nullcontext(),
+                                                               _stats_frozen(b)))
+                else:
+                    x = block(x)
             feats.append(x)
         return feats
+
+
+@contextlib.contextmanager
+def _stats_frozen(module: nn.Module):
+    """Normalise as in train mode but leave the running statistics alone."""
+    norms = [m for m in module.modules() if isinstance(m, FlaxBatchNorm2d)]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            del m.update_stats
 
 
 def resnet50(**kw) -> ResNet:

@@ -1,6 +1,7 @@
-"""RT-DETR detector (PyTorch), inference: ResNet-vd backbone, hybrid encoder
-(AIFI + CCFF), multi-scale deformable-attention decoder with iterative box
-refinement and IoU-aware query selection, NMS-free output.
+"""RT-DETR detector (PyTorch): ResNet-vd backbone, hybrid encoder (AIFI +
+CCFF), multi-scale deformable-attention decoder with iterative box
+refinement and IoU-aware query selection, NMS-free output; in training,
+contrastive denoising queries.
 
 Counterpart of ``multimodal_moe_tpu/models/rtdetr.py``. Modules carry the
 Flax names (``self_attn.query``, ``cross_attn.value_proj``,
@@ -12,8 +13,10 @@ valid mask and the level offsets assume.
 
 Float32 islands, kept in bf16 too: the softmax of the attention weights,
 the sampling locations, the deformable sampling itself, encoder boxes and
-scores, and the refined boxes. Training (denoising queries, the Hungarian
-loss) belongs to the port's training slice.
+scores, and the refined boxes. ``forward(train=True)`` needs train mode
+(``model.train()``: Flax's batch statistics in every BatchNorm); with
+ground truth it adds the denoising queries. The loss is
+:func:`rtdetr_loss` (``losses/hungarian.py``).
 """
 
 from __future__ import annotations
@@ -168,7 +171,8 @@ def _grid_init(num_heads: int, num_levels: int, num_points: int) -> np.ndarray:
 
 class MSDeformAttn(nn.Module):
     """Multi-scale deformable attention: projections around the sampling
-    core, which is the CUDA kernel on the card (``ms_deform_attn_fwd``)."""
+    core, which is the CUDA kernels on the card (``ms_deform_attn_fwd``, an
+    autograd function: forward kernel B4, backward kernel B5)."""
 
     def __init__(self, dim: int = 256, num_heads: int = 8, num_levels: int = 3,
                  num_points: int = 4):
@@ -246,33 +250,91 @@ def anchors_for(level_shapes, grid_size: float = 0.05):
     return np.concatenate(all_anchors).astype(np.float32), np.concatenate(valids)
 
 
+def build_denoising_queries(
+    gt_boxes: torch.Tensor,    # (B, M, 4) cxcywh normalised
+    gt_mask: torch.Tensor,     # (B, M)
+    *,
+    num_groups: int = 2,
+    num_matching: int,
+    box_noise_scale: float = 1.0,
+    generator: "torch.Generator | None" = None,
+    shift_u: "torch.Tensor | None" = None,
+    scale_u: "torch.Tensor | None" = None,
+):
+    """Contrastive denoising (CDN) queries, static shapes (the JAX function).
+
+    Per group every GT slot yields a positive query (small jitter) and a
+    negative one (large jitter). The uniform draws ``shift_u`` in [−1, 1)
+    and ``scale_u`` in [−0.5, 0.5), each ``(B, 2G, M, 2)``, come from
+    ``generator`` unless given (the tests feed JAX's).
+
+    Returns ``dn_ref`` (B, D, 4) in [0, 1], ``dn_is_pos`` (D,) bool and the
+    attention mask (D+Q, D+Q) bool, True = may attend; D = 2·G·M.
+    """
+    b, m, _ = gt_boxes.shape
+    d = 2 * num_groups * m
+    dev = gt_boxes.device
+    boxes = gt_boxes[:, None].expand(b, 2 * num_groups, m, 4)       # (B, 2G, M, 4)
+    is_pos = torch.arange(2 * num_groups, device=dev) % 2 == 0
+    draw_on = generator.device if generator is not None else dev
+    if shift_u is None:
+        shift_u = torch.rand((b, 2 * num_groups, m, 2), generator=generator, device=draw_on) * 2 - 1
+    if scale_u is None:
+        scale_u = torch.rand((b, 2 * num_groups, m, 2), generator=generator, device=draw_on) - 0.5
+    shift_u, scale_u = shift_u.to(dev), scale_u.to(dev) * box_noise_scale
+    pos = is_pos[None, :, None, None]
+    # positive: shift in (−0.5, 0.5)·wh; negative: ±(0.5, 1.0)·wh
+    mag = torch.where(pos, shift_u.abs() * 0.5, 0.5 + shift_u.abs() * 0.5)
+    shift = torch.sign(shift_u) * mag * boxes[..., 2:4] * box_noise_scale
+    wh_scale = torch.where(pos, 1.0 + 0.5 * scale_u, 1.0 + scale_u)
+    ctr = boxes[..., 0:2] + shift
+    wh = boxes[..., 2:4] * wh_scale.abs()
+    dn_ref = torch.cat([ctr, wh], -1).clamp(1e-4, 1.0 - 1e-4).reshape(b, d, 4)
+    dn_is_pos = is_pos.repeat_interleave(m)                          # (D,)
+    # Matching queries never see dn queries, dn groups never see each other,
+    # dn queries may see the matching queries (RT-DETRv2/DINO).
+    group_id = torch.cat([
+        torch.arange(num_groups, device=dev).repeat_interleave(2 * m),
+        torch.full((num_matching,), num_groups + 1, device=dev),
+    ])
+    is_match = group_id == num_groups + 1
+    attn_mask = (group_id[:, None] == group_id[None, :]) | ((~is_match)[:, None] & is_match[None, :])
+    return dn_ref, dn_is_pos, attn_mask
+
+
 class RTDETRDetector(nn.Module):
-    """Full RT-DETR for inference. ``forward(images)`` takes NHWC float
-    images in [0, 1] and returns the JAX model's output dict: final
-    ``pred_logits``/``pred_boxes`` (normalised cxcywh), ``aux_outputs`` of
-    the earlier decoder layers, ``enc_outputs`` of the query selection, and
-    ``boxes`` (xyxy pixels) + ``cls_logits`` for the serving tail.
+    """Full RT-DETR. ``forward(images)`` takes NHWC float images in [0, 1]
+    and returns the JAX model's output dict: final ``pred_logits``/
+    ``pred_boxes`` (normalised cxcywh), ``aux_outputs`` of the earlier
+    decoder layers, ``enc_outputs`` of the query selection, and ``boxes``
+    (xyxy pixels) + ``cls_logits`` for the serving tail; in training with
+    ground truth also ``dn_outputs``, ``dn_is_pos`` and ``dn_groups``.
 
     ``dtype`` is the compute (and weight) type. Weights are initialised as
-    Flax initialises them, from ``generator``.
+    Flax initialises them, from ``generator``. ``remat`` recomputes the
+    backbone blocks during backward.
     """
+
+    denoising_capable = True  # the trainer passes ground truth and denoising draws
 
     def __init__(self, num_classes: int = 1, hidden_dim: int = 256, num_queries: int = 300,
                  num_decoder_layers: int = 6, num_heads: int = 8, num_points: int = 4,
+                 num_denoising_groups: int = 2,
                  backbone_depths: "Tuple[int, ...]" = (3, 4, 6, 3), arch: str = "tpu",
-                 dtype: torch.dtype = torch.float32,
+                 dtype: torch.dtype = torch.float32, remat: bool = False,
                  generator: "torch.Generator | None" = None):
         super().__init__()
         c = hidden_dim
         self.num_classes, self.hidden_dim, self.num_queries = num_classes, c, num_queries
         self.num_decoder_layers = num_decoder_layers
+        self.num_denoising_groups = num_denoising_groups
         self.dtype = dtype
-        self.backbone = ResNet(stage_sizes=backbone_depths)
+        self.backbone = ResNet(stage_sizes=backbone_depths, remat=remat)
         self.encoder = HybridEncoder(self.backbone.out_channels[1:], c, num_heads, arch)
         self.enc_score = nn.Linear(c, num_classes)
         self.enc_bbox = MLP(c, c, 4, num_layers=3)
         self.query_proj = MLP(c, c, c, num_layers=2)
-        # Held for the training slice's denoising queries; unused here.
+        # Content of every denoising query (training only).
         self.dn_content_embed = nn.Parameter(torch.zeros(1, 1, c))
         for li in range(num_decoder_layers):
             self.add_module(f"ref_embed{li}", MLP(4, c, c, num_layers=2))
@@ -308,11 +370,16 @@ class RTDETRDetector(nn.Module):
         return self._anchor_cache[key]
 
     def forward(self, images: torch.Tensor, train: bool = False,
-                gt_boxes=None, gt_mask=None) -> Dict:
-        if train:
-            raise NotImplementedError(
-                "RT-DETR training (denoising queries, Hungarian loss) belongs to "
-                "the port's training slice; this port serves inference only"
+                gt_boxes: "torch.Tensor | None" = None, gt_mask: "torch.Tensor | None" = None,
+                denoise_generator: "torch.Generator | None" = None,
+                dn_draws: "Tuple[torch.Tensor, torch.Tensor] | None" = None) -> Dict:
+        """``gt_boxes`` (B, M, 4) xyxy pixels and ``gt_mask`` (B, M) add the
+        denoising queries in training; their draws come from
+        ``denoise_generator``, or are ``dn_draws = (shift_u, scale_u)``."""
+        if train != self.training:
+            raise ValueError(
+                f"forward(train={train}) on a model in {'train' if self.training else 'eval'} "
+                "mode: BatchNorm follows the mode, so call model.train() or model.eval() first"
             )
         b, img_h, img_w, _ = images.shape
         x = images.to(self.dtype).permute(0, 3, 1, 2)
@@ -332,30 +399,67 @@ class RTDETRDetector(nn.Module):
         enc_topk_logits = torch.gather(
             enc_logits, 1, topk[..., None].expand(-1, -1, enc_logits.shape[-1]))
         content = torch.gather(memory, 1, topk[..., None].expand(-1, -1, memory.shape[-1]))
-        query = self.query_proj(content)
+        query = self.query_proj(content.detach())
+        ref = ref_boxes.detach()
 
-        # Decoder with iterative refinement.
+        # Contrastive denoising queries (training with ground truth only).
+        num_dn, attn_mask, dn_is_pos = 0, None, None
+        if train and self.num_denoising_groups > 0 and gt_boxes is not None and gt_mask is not None:
+            scale = torch.tensor([img_w, img_h, img_w, img_h], dtype=torch.float32,
+                                 device=gt_boxes.device)
+            gt_n = gt_boxes / scale
+            gt_cxcywh = torch.cat([(gt_n[..., 0:2] + gt_n[..., 2:4]) / 2,
+                                   gt_n[..., 2:4] - gt_n[..., 0:2]], dim=-1)
+            shift_u, scale_u = dn_draws if dn_draws is not None else (None, None)
+            dn_ref, dn_is_pos, attn_mask = build_denoising_queries(
+                gt_cxcywh.clamp(1e-4, 1 - 1e-4), gt_mask,
+                num_groups=self.num_denoising_groups, num_matching=self.num_queries,
+                generator=denoise_generator, shift_u=shift_u, scale_u=scale_u)
+            num_dn = dn_ref.shape[1]
+            dn_query = self.dn_content_embed.to(self.dtype).expand(b, num_dn, -1)
+            query = torch.cat([dn_query, query], dim=1)
+            ref = torch.cat([dn_ref, ref], dim=1)
+
+        # Decoder with iterative refinement; the carried ``ref`` is detached,
+        # so each layer's box loss sees only its own delta.
         aux_outputs: "List[Dict[str, torch.Tensor]]" = []
-        ref = ref_boxes
+        dn_outputs: "List[Dict[str, torch.Tensor]]" = []
         for li in range(self.num_decoder_layers):
             query_pos = getattr(self, f"ref_embed{li}")(ref.to(self.dtype))
-            query = getattr(self, f"decoder{li}")(query, query_pos, ref, memory, level_shapes)
+            query = getattr(self, f"decoder{li}")(query, query_pos, ref, memory, level_shapes,
+                                                  attn_mask=attn_mask)
             delta = getattr(self, f"bbox_head{li}")(query)
             ref_out = torch.sigmoid(delta.float() + inverse_sigmoid(ref))
-            logits = getattr(self, f"cls_head{li}")(query)
-            aux_outputs.append({"pred_logits": logits.float(), "pred_boxes": ref_out})
-            ref = ref_out
+            logits = getattr(self, f"cls_head{li}")(query).float()
+            aux_outputs.append({"pred_logits": logits[:, num_dn:], "pred_boxes": ref_out[:, num_dn:]})
+            if num_dn:
+                dn_outputs.append({"pred_logits": logits[:, :num_dn],
+                                   "pred_boxes": ref_out[:, :num_dn]})
+            ref = ref_out.detach()
 
         final = aux_outputs[-1]
         pb = final["pred_boxes"]
         cx, cy = pb[..., 0] * img_w, pb[..., 1] * img_h
         w, h = pb[..., 2] * img_w, pb[..., 3] * img_h
         boxes_xyxy = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], dim=-1)
-        return {
+        out = {
             "pred_logits": final["pred_logits"],
             "pred_boxes": final["pred_boxes"],
             "aux_outputs": aux_outputs[:-1],
+            # Matched as one more layer so that enc_score/enc_bbox train; the
+            # boxes stay attached.
             "enc_outputs": {"pred_logits": enc_topk_logits, "pred_boxes": ref_boxes},
             "boxes": boxes_xyxy,                    # (B, Q, 4) xyxy pixels
             "cls_logits": final["pred_logits"],     # evaluator interface
         }
+        if num_dn:
+            out.update(dn_outputs=dn_outputs, dn_is_pos=dn_is_pos,
+                       dn_groups=self.num_denoising_groups)
+        return out
+
+
+def rtdetr_loss(outputs, gt_labels, gt_boxes, gt_mask, *, img_hw=(704, 1248)):
+    """DETR set loss incl. the encoder head and the denoising queries."""
+    from ..losses.hungarian import detr_loss
+
+    return detr_loss(outputs, gt_labels, gt_boxes, gt_mask, img_hw=img_hw)

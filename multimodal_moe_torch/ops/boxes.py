@@ -1,7 +1,7 @@
 """Box geometry in absolute-pixel xyxy: conversions, area, IoU.
 
-Counterpart of ``multimodal_moe_tpu/ops/boxes.py`` (the GIoU/CIoU losses
-come with the training slice). The arithmetic order is the JAX module's,
+Counterpart of ``multimodal_moe_tpu/ops/boxes.py`` (GIoU for the DETR loss;
+CIoU waits for YOLO training). The arithmetic order is the JAX module's,
 because NMS decisions at exactly the threshold depend on it:
 ``inter / ((area_a + area_b) - inter + EPS)``.
 """
@@ -52,3 +52,27 @@ def elementwise_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tenso
     inter = wh[..., 0] * wh[..., 1]
     union = box_area(boxes_a) + box_area(boxes_b) - inter
     return inter / (union + EPS)
+
+
+def elementwise_giou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """Generalized IoU (differentiable regression target), aligned ``(..., 4)``."""
+    iou = elementwise_iou(boxes_a, boxes_b)
+    lt = torch.minimum(boxes_a[..., 0:2], boxes_b[..., 0:2])
+    rb = torch.maximum(boxes_a[..., 2:4], boxes_b[..., 2:4])
+    wh = (rb - lt).clamp_min(0.0)
+    enclose = wh[..., 0] * wh[..., 1]
+    lt_i = torch.maximum(boxes_a[..., 0:2], boxes_b[..., 0:2])
+    rb_i = torch.minimum(boxes_a[..., 2:4], boxes_b[..., 2:4])
+    wh_i = (rb_i - lt_i).clamp_min(0.0)
+    inter = wh_i[..., 0] * wh_i[..., 1]
+    union = box_area(boxes_a) + box_area(boxes_b) - inter
+    return iou - (enclose - union) / (enclose + EPS)
+
+
+def pairwise_giou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """GIoU matrix ``(..., N, M)`` between ``(..., N, 4)`` and ``(..., M, 4)``
+    (the DETR Hungarian cost)."""
+    a = boxes_a[..., :, None, :]
+    b = boxes_b[..., None, :, :]
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    return elementwise_giou(a.expand(shape), b.expand(shape))

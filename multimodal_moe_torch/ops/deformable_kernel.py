@@ -1,10 +1,13 @@
-"""Multi-scale deformable attention forward: the CUDA kernel
-``csrc/ms_deform_fwd.cu``, its wrapper and its launch count.
+"""Multi-scale deformable attention: the CUDA kernels ``csrc/ms_deform_fwd.cu``
+and ``csrc/ms_deform_bwd.cu``, their wrappers and launch counts, and the
+autograd function that joins them.
 
-Port of ``multimodal_moe_tpu/ops/deformable_pallas.py:_fwd_kernel``. The
-plain version is :func:`.deformable.ms_deformable_attention`. A CUDA tensor
-launches the kernel; a CPU tensor takes the plain version. There is no
-fallback from one to the other.
+Port of ``multimodal_moe_tpu/ops/deformable_pallas.py`` (``_fwd_kernel``,
+``_bwd_kernel`` and the ``custom_vjp`` around them). The plain versions are
+:func:`.deformable.ms_deformable_attention` and
+:func:`.deformable.ms_deform_attn_bwd_plain`. A CUDA tensor launches the
+kernels; a CPU tensor takes the plain versions. There is no fallback from
+one to the other. ``ms_deform_attn_fwd`` is differentiable on both.
 """
 
 from __future__ import annotations
@@ -14,26 +17,33 @@ from typing import Sequence, Tuple
 
 import torch
 
-from .deformable import level_shapes_to_offsets, ms_deformable_attention
+from .deformable import (
+    level_shapes_to_offsets,
+    ms_deform_attn_bwd_plain,
+    ms_deform_attn_loc_attn_grads,
+    ms_deformable_attention,
+)
 
-# Launches of the CUDA kernel in this process (the plain version does not count).
+# Launches of the CUDA kernels in this process (the plain versions do not count).
 ms_deform_fwd_launches = 0
+ms_deform_bwd_launches = 0
 
 MAX_LEVELS = 8
 MAX_HEAD_DIM = 32  # one channel per lane of a warp
 
 
-def _lib():
+def _lib(name: str):
+    """``name`` is ``ms_deform_fwd`` (4 pointers) or ``ms_deform_bwd`` (6)."""
     from .._build import load
 
-    lib = load("ms_deform_fwd")
-    lib.ms_deform_fwd_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    lib = load(name)
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = [ctypes.c_void_p] * (4 if name == "ms_deform_fwd" else 6) + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
     ]
-    lib.ms_deform_fwd_launch.restype = ctypes.c_int
-    return lib
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _check(values, level_shapes, loc, attn) -> "Tuple[Tuple[int, int], ...]":
@@ -70,15 +80,9 @@ def _check(values, level_shapes, loc, attn) -> "Tuple[Tuple[int, int], ...]":
     return level_shapes
 
 
-def ms_deform_attn_fwd(
-    values: torch.Tensor,
-    level_shapes: "Sequence[Tuple[int, int]]",
-    loc: torch.Tensor,
-    attn: torch.Tensor,
-) -> torch.Tensor:
-    """values ``(B, ΣHW, NH, D)`` f32, loc ``(B, Q, NH, L, P, 2)`` f32,
-    attn ``(B, Q, NH, L, P)`` f32 → ``(B, Q, NH·D)`` f32."""
-    level_shapes = _check(values, level_shapes, loc, attn)
+def _fwd(values, level_shapes, loc, attn) -> torch.Tensor:
+    """Forward on checked inputs: the kernel on the card, the plain version
+    on the CPU."""
     if values.device.type == "cpu":
         return ms_deformable_attention(values, level_shapes, loc, attn)
     if values.device.type != "cuda":
@@ -89,10 +93,10 @@ def ms_deform_attn_fwd(
     if out.numel() == 0:
         return out
     hw = (ctypes.c_int * (2 * n_levels))(*[v for s in level_shapes for v in s])
-    lib = _lib()
+    launch = _lib("ms_deform_fwd")
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
-        err = lib.ms_deform_fwd_launch(
+        err = launch(
             values.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(),
             b, total, q, nh, d, n_levels, n_points, hw, stream,
         )
@@ -101,3 +105,79 @@ def ms_deform_attn_fwd(
     global ms_deform_fwd_launches
     ms_deform_fwd_launches += 1
     return out
+
+
+def ms_deform_attn_bwd(
+    values: torch.Tensor,
+    level_shapes: "Sequence[Tuple[int, int]]",
+    loc: torch.Tensor,
+    attn: torch.Tensor,
+    g: torch.Tensor,
+) -> "Tuple[torch.Tensor, torch.Tensor]":
+    """The backward's gather-scatter part: the inputs of the forward and the
+    output cotangent g ``(B, Q, NH·D)`` f32 → ``dv`` ``(B, ΣHW, NH, D)`` and
+    the per-corner sums ``s`` ``(B, Q, NH, L, P, 4)``. The kernel on the
+    card, :func:`.deformable.ms_deform_attn_bwd_plain` on the CPU."""
+    level_shapes = _check(values, level_shapes, loc, attn)
+    b, total, nh, d = values.shape
+    _, q, _, n_levels, n_points = attn.shape
+    if tuple(g.shape) != (b, q, nh * d):
+        raise ValueError(f"g must be {(b, q, nh * d)}, got {tuple(g.shape)}")
+    if g.dtype != torch.float32:
+        raise TypeError(f"g must be float32, got {g.dtype}")
+    if g.device != values.device:
+        raise ValueError(f"g is on {g.device}, values on {values.device}")
+    if not g.is_contiguous():
+        raise ValueError("g must be contiguous")
+    if values.device.type == "cpu":
+        return ms_deform_attn_bwd_plain(values, level_shapes, loc, attn, g)
+    if values.device.type != "cuda":
+        raise ValueError(f"unsupported device {values.device}")
+    dv = torch.zeros_like(values)
+    s = torch.empty(tuple(attn.shape) + (4,), dtype=torch.float32, device=values.device)
+    if s.numel() == 0:
+        return dv, s
+    hw = (ctypes.c_int * (2 * n_levels))(*[v for sh in level_shapes for v in sh])
+    launch = _lib("ms_deform_bwd")
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        err = launch(
+            values.data_ptr(), loc.data_ptr(), attn.data_ptr(), g.data_ptr(),
+            dv.data_ptr(), s.data_ptr(), b, total, q, nh, d, n_levels, n_points, hw, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ms_deform_bwd kernel launch failed: cudaError_t {err}")
+    global ms_deform_bwd_launches
+    ms_deform_bwd_launches += 1
+    return dv, s
+
+
+class _MSDeformAttn(torch.autograd.Function):
+    """Forward kernel (B4) and backward kernel (B5) as one differentiable op,
+    the counterpart of ``ms_deformable_attention_pallas``'s ``custom_vjp``."""
+
+    @staticmethod
+    def forward(ctx, values, loc, attn, level_shapes):
+        ctx.level_shapes = level_shapes
+        ctx.save_for_backward(values, loc, attn)
+        return _fwd(values, level_shapes, loc, attn)
+
+    @staticmethod
+    def backward(ctx, g):
+        values, loc, attn = ctx.saved_tensors
+        dv, s = ms_deform_attn_bwd(values, ctx.level_shapes, loc, attn, g.contiguous())
+        d_loc, d_attn = ms_deform_attn_loc_attn_grads(ctx.level_shapes, loc, attn, s)
+        return dv, d_loc, d_attn, None
+
+
+def ms_deform_attn_fwd(
+    values: torch.Tensor,
+    level_shapes: "Sequence[Tuple[int, int]]",
+    loc: torch.Tensor,
+    attn: torch.Tensor,
+) -> torch.Tensor:
+    """values ``(B, ΣHW, NH, D)`` f32, loc ``(B, Q, NH, L, P, 2)`` f32,
+    attn ``(B, Q, NH, L, P)`` f32 → ``(B, Q, NH·D)`` f32. Differentiable in
+    all three: the backward runs :func:`ms_deform_attn_bwd`."""
+    level_shapes = _check(values, level_shapes, loc, attn)
+    return _MSDeformAttn.apply(values, loc, attn, level_shapes)

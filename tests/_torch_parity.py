@@ -65,6 +65,37 @@ def randomize_norm(variables, seed: int = 0):
     return {"params": params(variables["params"]), "batch_stats": stats(variables["batch_stats"])}
 
 
+def numpy_variables(module, *args, seed: int = 0, **kwargs):
+    """Variables for a Flax ``module`` made with numpy from ``seed``, at
+    the shapes of ``module.init(key, *args, **kwargs)`` (found by
+    ``jax.eval_shape``: no compile). Kernels ~ N(0, 1/fan_in) (Flax's
+    lecun_normal, untruncated), biases 0, raw parameters ~ N(0, 0.02);
+    every norm through ``randomize_norm``."""
+    shapes = jax.eval_shape(lambda r: module.init(r, *args, **kwargs), jax.random.PRNGKey(0))
+    rng = np.random.default_rng(seed)
+
+    def fill(tree, parent=""):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = fill(v, k)
+            elif k == "kernel":
+                # attention q/k/v kernels are (in, NH, hd); every other kernel
+                # (conv HWIO, Dense, attention ``out`` (NH, hd, out)) has its
+                # fan-in on all but the last axis
+                qkv = len(v.shape) == 3 and parent != "out"
+                fan_in = v.shape[0] if qkv else int(np.prod(v.shape[:-1]))
+                out[k] = rng.normal(0.0, fan_in ** -0.5, v.shape).astype(np.float32)
+            elif k == "bias":
+                out[k] = np.zeros(v.shape, np.float32)
+            else:
+                out[k] = rng.normal(0.0, 0.02, v.shape).astype(np.float32)
+        return out
+
+    return randomize_norm({"params": fill(shapes["params"]),
+                           "batch_stats": fill(shapes["batch_stats"])}, seed=seed)
+
+
 def load_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
     """Load numpy Flax variables into ``module`` (strict) and set eval mode."""
     module.load_state_dict(flax_to_state_dict(variables), strict=True)
@@ -121,7 +152,7 @@ def rtdetr_pair(cfg: dict, seed: int, images: np.ndarray) -> SimpleNamespace:
 
 
 def to_numpy(tree):
-    return jax.tree.map(lambda t: t.numpy() if isinstance(t, torch.Tensor) else np.asarray(t),
+    return jax.tree.map(lambda t: t.detach().numpy() if isinstance(t, torch.Tensor) else np.asarray(t),
                         tree)
 
 
@@ -159,3 +190,64 @@ def assert_rtdetr_outputs_match(pair: SimpleNamespace):
     np.testing.assert_allclose(got["boxes"], ref["boxes"], rtol=0, atol=RTDETR_PIXEL_TOL)
     for k in ("pred_logits", "pred_boxes", "boxes"):
         assert got[k].dtype == np.float32
+
+
+# --------------------------------------------------------------------------
+# training: the draws JAX makes, seeded batches, RT-DETR weights
+# --------------------------------------------------------------------------
+
+def jax_augment_draws(rng, b, hflip_prob=0.5):
+    """The draws ``multimodal_moe_tpu.ops.augment.train_augment`` makes
+    from ``rng`` (its splits, its ranges)."""
+    k1, k2 = jax.random.split(rng)
+    kh, ks, kv = jax.random.split(k1, 3)
+    return {"dh": jax.random.uniform(kh, (b, 1, 1), minval=-0.015, maxval=0.015),
+            "gs": 1.0 + jax.random.uniform(ks, (b, 1, 1), minval=-0.7, maxval=0.7),
+            "gv": 1.0 + jax.random.uniform(kv, (b, 1, 1), minval=-0.4, maxval=0.4),
+            "flip": jax.random.uniform(k2, (b,)) < hflip_prob}
+
+
+def jax_denoise_draws(rng, b, m, groups=2):
+    """The uniform draws ``build_denoising_queries`` makes from ``rng``."""
+    k1, k2, _ = jax.random.split(rng, 3)
+    shape = (b, 2 * groups, m, 2)
+    return (jax.random.uniform(k1, shape, minval=-1.0, maxval=1.0),
+            jax.random.uniform(k2, shape, minval=-0.5, maxval=0.5))
+
+
+def as_torch(tree):
+    return jax.tree.map(lambda a: torch.from_numpy(np.array(a)), tree)
+
+
+def detection_batches(n, h, w, b=2, m=3, seed=0):
+    """``n`` seeded host batches (the trainer's five keys but
+    ``solar_bin``): uint8 frames, ``m`` box slots, the last one padded."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        x1 = rng.uniform(0, w - 40, (b, m, 1))
+        y1 = rng.uniform(0, h - 30, (b, m, 1))
+        boxes = np.concatenate([x1, y1, x1 + rng.uniform(8, 40, (b, m, 1)),
+                                y1 + rng.uniform(8, 30, (b, m, 1))], -1).astype(np.float32)
+        mask = np.ones((b, m), bool)
+        mask[:, -1] = False
+        boxes[~mask] = 0.0
+        out.append({"image": rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8),
+                    "gt_boxes": boxes, "gt_labels": np.zeros((b, m), np.int32),
+                    "gt_mask": mask})
+    return out
+
+
+def rtdetr_numpy_variables(jmodel, h: int, w: int, seed: int):
+    """``numpy_variables`` for a Flax RT-DETR, with Flax's own init of the
+    sampling offsets (zero kernel, directional bias) and the class prior
+    bias, so that the random detector is as well conditioned as Flax's."""
+    from multimodal_moe_torch.models.rtdetr import CLS_PRIOR_BIAS, _grid_init
+
+    variables = numpy_variables(jmodel, jnp.zeros((1, h, w, 3)), seed=seed)
+    for li in range(jmodel.num_decoder_layers):
+        offsets = variables["params"][f"decoder{li}"]["cross_attn"]["sampling_offsets"]
+        offsets["kernel"][:] = 0.0
+        offsets["bias"][:] = _grid_init(jmodel.num_heads, 3, jmodel.num_points)
+        variables["params"][f"cls_head{li}"]["bias"][:] = CLS_PRIOR_BIAS
+    return variables

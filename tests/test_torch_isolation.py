@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no module of ``multimodal_moe_torch`` (nor
-``chip_smoke.py``) imports ``jax``, ``flax`` or ``multimodal_moe_tpu``."""
+``chip_smoke.py``) imports ``jax``, ``flax``, ``optax``, ``orbax`` or
+``multimodal_moe_tpu``; the training modules are among those imported."""
 
 import ast
 import subprocess
@@ -7,7 +8,11 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "multimodal_moe_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "multimodal_moe_tpu")
+# Modules that must be among those the child imports (the training modules).
+REQUIRED = ("multimodal_moe_torch.losses.hungarian", "multimodal_moe_torch.ops.assignment",
+            "multimodal_moe_torch.ops.augment", "multimodal_moe_torch.train.state",
+            "multimodal_moe_torch.train.detection")
 
 _CHILD = """
 import importlib, pkgutil, sys
@@ -17,6 +22,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401  (its main() runs only as a script)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden})
+print(" ".join(names))
 print(len(names))
 assert not bad, bad
 """
@@ -29,6 +35,7 @@ def test_import_pulls_in_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 10  # every module was imported
+    assert set(REQUIRED) <= set(proc.stdout.split())
 
 
 def _sources():

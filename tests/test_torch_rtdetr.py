@@ -194,11 +194,16 @@ def test_unmapped_leaf_raises():
 
 
 def test_training_is_not_ported():
+    """Training is ported (tests/test_torch_rtdetr_train.py); what stays
+    refused is a ``train`` flag that disagrees with the module's mode, which
+    would silently pick the other BatchNorm rule."""
     model = tr.RTDETRDetector(num_classes=1, hidden_dim=64, num_queries=4,
                               num_decoder_layers=1, num_heads=4, backbone_depths=(1, 1, 1, 1))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(torch.zeros((1, H, W, 3)), train=True,
-              gt_boxes=torch.zeros((1, 2, 4)), gt_mask=torch.ones((1, 2), dtype=torch.bool))
+    with pytest.raises(ValueError, match=r"model\.train\(\)"):
+        model.eval()(torch.zeros((1, H, W, 3)), train=True,
+                     gt_boxes=torch.zeros((1, 2, 4)), gt_mask=torch.ones((1, 2), dtype=torch.bool))
+    with pytest.raises(ValueError, match=r"model\.eval\(\)"):
+        model.train()(torch.zeros((1, H, W, 3)))
 
 
 def test_random_init_mirrors_flax_init():
