@@ -8,7 +8,7 @@ Phases (each prints one JSON line):
 
 1. device   -- the card's name and power limit (``nvidia-smi``).
 2. build    -- compiles ``multimodal_moe_torch/csrc/{nms_keep,ms_deform_fwd,
-               ms_deform_bwd,moe_ffn_fwd}.cu`` with nvcc, all at once, into
+               ms_deform_bwd,moe_ffn_fwd,gmm}.cu`` with nvcc, all at once, into
                ``multimodal_moe_torch/build/``; build seconds and ptxas
                register and spill counts.
 3. nms_keep -- the NMS keep-mask kernel against its plain PyTorch version on
@@ -111,6 +111,35 @@ Phases (each prints one JSON line):
                the step's own inputs against its plain version, with times
                and bounds; then a learning check (one fixed batch, B=4, no
                augmentation, warmup of 1 step: the loss falls over 20 steps).
+14. gmm_kernel -- the grouped GEMM (csrc/gmm.cu) against its plain versions:
+               gmm, the transposed gmm (the lhs gradient) and tgmm (the rhs
+               gradient) at the six level shapes of the MoE-YOLO-s B=16
+               training step (M = 2 x 219,648 / 54,912 / 13,728 rows; K, N =
+               128/256, 256/128, 256/512, 512/256, 512/1024, 1024/512; E=4,
+               segment sizes from a seeded router), float32 with TF32 off;
+               one bf16 shape, an empty group, the collapse case (all rows in
+               one group) and a row count that is no multiple of the tile.
+               Tolerance: each element within 2·n·u·Σ|aᵢbᵢ| (u = 2^-24, n the
+               length of its sum). Kernel, plain, library (one cuBLAS mm per
+               segment) and bound times per launch at the level shapes.
+15. moe_yolo_train_fp32 -- one DetectionTrainer.train_step of MoE-YOLO-s on
+               ``dispatch="gmm"`` (scripts/train_moe.py's model and optimizer,
+               random weights from seed 0) at B=1, 704x1248, 96 ground-truth
+               slots, fp32 with TF32 off, card against CPU with the same
+               augmentation draws; the CPU replays the card's expert choice
+               and TAL assignment and counts where its own differ. Checks:
+               the loss, each MoE level's parameter gradients on the card's
+               own inputs and output gradient, 12 gmm and 6 tgmm launches.
+16. moe_yolo_train -- the slice's headline: the B=16 step of
+               scripts/train_moe.py (SGD-Nesterov, HSV + flips, 96 slots, a
+               solar bin a frame) on ``dispatch="gmm"`` and on ``auto`` (the
+               sweep), fp32 with TF32 on: step ms, img/s, peak memory, the
+               split (augment / trunk / each MoE level / head / loss with
+               the assignment / backward / optimizer + EMA, CUDA events),
+               launches per step (12 + 6 on gmm, 0 on auto); then a 20-step
+               learning check at B=4 on one fixed batch.
+17. yolo_train -- the B=16 YOLO-s step of scripts/train_yolo.py with the
+               trainer's default yolo_loss: step ms, img/s, peak memory, split.
 
 """
 
@@ -137,16 +166,22 @@ import torch.nn.functional as F  # noqa: E402
 
 from multimodal_moe_torch import _build  # noqa: E402
 from multimodal_moe_torch.losses import hungarian as hungarian_module  # noqa: E402
+from multimodal_moe_torch.losses import tal as tal_module  # noqa: E402
 from multimodal_moe_torch.models import moe as moe_module  # noqa: E402
 from multimodal_moe_torch.models import rtdetr as rtdetr_module  # noqa: E402
-from multimodal_moe_torch.models.moe_yolo import MoEYoloDetector  # noqa: E402
+from multimodal_moe_torch.models.moe_yolo import MoEYoloDetector, moe_yolo_loss  # noqa: E402
 from multimodal_moe_torch.models.rtdetr import (  # noqa: E402
     RTDETRDetector,
     anchors_for,
     rtdetr_loss,
 )
 from multimodal_moe_torch.models.yolo import YoloDetector  # noqa: E402
-from multimodal_moe_torch.ops import deformable_kernel, moe_kernels, nms_kernel  # noqa: E402
+from multimodal_moe_torch.ops import (  # noqa: E402
+    deformable_kernel,
+    gmm_kernel,
+    moe_kernels,
+    nms_kernel,
+)
 from multimodal_moe_torch.ops.assignment import assignment_margin  # noqa: E402
 from multimodal_moe_torch.ops.augment import augment_draws  # noqa: E402
 from multimodal_moe_torch.ops.deformable import (  # noqa: E402
@@ -178,7 +213,7 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12  # dense tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 IOU_FLOPS = 14  # min/max/sub/mul/add/div/compare per pair, areas amortised
-KERNELS = ("nms_keep", "ms_deform_fwd", "ms_deform_bwd", "moe_ffn_fwd")
+KERNELS = ("nms_keep", "ms_deform_fwd", "ms_deform_bwd", "moe_ffn_fwd", "gmm")
 # RT-DETR headline (bench.py: RT_B=16 at the protocol resolution).
 RT_B, RT_QUERIES, RT_LAYERS = 16, 300, 6
 RT_LEVELS = ((IMG_H // 8, IMG_W // 8), (IMG_H // 16, IMG_W // 16), (IMG_H // 32, IMG_W // 32))
@@ -981,11 +1016,13 @@ def decoder_io(model, store: dict) -> list:
             for li in range(RT_LAYERS)]
 
 
-def run_train_step(trainer, batch, draws=None, assign=None, layer_io=None) -> dict:
+def run_train_step(trainer, batch, draws=None, assign=None, layer_io=None,
+                   io_hooks=decoder_io) -> dict:
     """One ``train_step`` from a fresh state: the loss, its metrics and the
     gradients handed to the optimizer (on the host), with the matcher
-    wrapped by ``assign(real)`` when given; each decoder layer's inputs and
-    output gradient into ``layer_io`` when given."""
+    wrapped by ``assign(real)`` when given; the inputs and output gradient
+    of each module that ``io_hooks`` hooks (the decoder layers) into
+    ``layer_io`` when given."""
     state = trainer.init_state()
     grads = {}
     apply = state.apply_gradients
@@ -995,7 +1032,7 @@ def run_train_step(trainer, batch, draws=None, assign=None, layer_io=None) -> di
         return apply(g)
 
     state.apply_gradients = capture
-    hooks = decoder_io(state.model, layer_io) if layer_io is not None else []
+    hooks = io_hooks(state.model, layer_io) if layer_io is not None else []
     with contextlib.ExitStack() as stack:
         if assign is not None:
             stack.enter_context(patched(hungarian_module, "batched_lsa_assign", assign))
@@ -1463,13 +1500,13 @@ def phase_moe_yolo_fp32(dev) -> "tuple[dict, float]":
         before = moe_kernels.moe_ffn_fwd_launches
         with torch.inference_mode():
             with topk_selection(moe_module, record=picked), recording_ffn(ffn_args):
-                on_card = model(images.float() / 255.0, ctx)
+                on_card = model(images.float() / 255.0, context_ids=ctx)
             torch.cuda.synchronize()
             launched = moe_kernels.moe_ffn_fwd_launches - before
             # The CPU routes each token to the card's experts, whatever its own
             # logits pick; where they would pick otherwise is counted below.
             with topk_selection(moe_module, replay=[p.cpu() for p in picked]):
-                on_cpu = cpu_model(images.cpu().float() / 255.0, ctx.cpu())
+                on_cpu = cpu_model(images.cpu().float() / 255.0, context_ids=ctx.cpu())
         for h in h1 + h2:
             h.remove()
         r = {"moe_ffn_fwd_launches": launched, "levels": []}
@@ -1533,7 +1570,7 @@ def phase_moe_yolo_serving(dev, smi: str) -> "tuple[dict, dict]":
 
     def forward():
         with torch.inference_mode():
-            return model(x, ctx)
+            return model(x, context_ids=ctx)
 
     for route in ("auto", "fused"):
         set_route(model, route)
@@ -1631,6 +1668,563 @@ def moe_kernel_entry(per_level, launches, errs) -> dict:
     }
 
 
+# --------------------------------------------------------------------------
+# MoE-YOLO and YOLO training, and the grouped GEMM
+# --------------------------------------------------------------------------
+
+YOLO_B = 16                  # scripts/train_moe.py / train_yolo.py: batch 16
+GMM_LEVEL_TOKENS = tuple(YOLO_B * hh * ww for hh, ww in MOE_LEVELS)   # 219,648 / 54,912 / 13,728
+
+
+def routed_sizes(tokens: int, seed: int, dev) -> torch.Tensor:
+    """Segment sizes of ``tokens``·k rows from a seeded router: random
+    logits with a random per-expert bias, top-2 per token (uneven, not an
+    equal split), counted on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    logits = (torch.randn(tokens, MOE_E, generator=gen, device=dev)
+              + torch.randn(MOE_E, generator=gen, device=dev) * 0.5)
+    idx = torch.topk(logits, MOE_K, dim=-1).indices.reshape(-1)
+    return torch.bincount(idx, minlength=MOE_E).to(torch.int32)
+
+
+def gmm_problem(sizes: torch.Tensor, k: int, n: int, dtype, seed: int, dev):
+    """lhs (M, K) and the output gradient g (M, N) ~ N(0, 1), rhs (E, K, N)
+    at Flax's LeCun scale; lhs and rhs in ``dtype``, g float32."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    m = int(sizes.sum())
+    lhs = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+    rhs = (torch.randn(sizes.shape[0], k, n, generator=gen, device=dev) * k ** -0.5).to(dtype)
+    g = torch.randn(m, n, generator=gen, device=dev)
+    return lhs, rhs, g
+
+
+def gmm_bound(m, k, n, e, elt_in=4) -> "tuple[float, str]":
+    """Least time for one grouped product (M, K)·(K, N) per group: lhs,
+    rhs and the float32 output moved once over the memory rate, or 2·M·K·N
+    flops over the fp32 rate (the same for the transposed product and for
+    tgmm, whose output is (E, K, N))."""
+    nbytes = elt_in * (m * k + e * k * n) + 4 * m * n
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2 * m * k * n / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def segment_mm(lhs, rhs, offs, out, transpose=False, weight_grad=False):
+    """The library yardstick: one cuBLAS ``torch.mm`` per segment into a
+    preallocated output, the offsets read on the host beforehand."""
+    for g in range(len(offs) - 1):
+        a, b = offs[g], offs[g + 1]
+        if weight_grad:
+            torch.mm(lhs[a:b].T, rhs[a:b], out=out[g])
+        elif b > a:
+            torch.mm(lhs[a:b], rhs[g].T if transpose else rhs[g], out=out[a:b])
+    return out
+
+
+@torch.inference_mode()
+def gmm_compare(lhs, rhs, sizes, g) -> dict:
+    """gmm, the transposed gmm (the lhs gradient) and tgmm (the rhs
+    gradient) against their plain versions, each element within 2·n·u·Σ|aᵢbᵢ|
+    (n the length of its sum, u = 2⁻²⁴); the numbers are returned before any
+    check can raise."""
+    offs = [0] + np.cumsum(sizes.tolist()).tolist()
+    lf, rf = lhs.float(), rhs.float()
+    rec = {}
+    runs = {
+        "gmm": (lambda: gmm_kernel.gmm(lhs, rhs, sizes),
+                lambda: gmm_kernel.gmm_plain(lhs, rhs, sizes), lhs.shape[1],
+                lambda i, sl: lf[sl].abs() @ rf[i].abs()),
+        "gmm_transposed": (lambda: gmm_kernel.gmm(g, rhs, sizes, transpose_rhs=True),
+                           lambda: gmm_kernel.gmm_plain(g, rhs, sizes, True), g.shape[1],
+                           lambda i, sl: g[sl].abs() @ rf[i].abs().T),
+    }
+    for name, (kern, plain, length, absprod) in runs.items():
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        worst, ok = 0.0, bool(torch.isfinite(got).all())
+        for i in range(len(offs) - 1):
+            sl = slice(offs[i], offs[i + 1])
+            if sl.stop > sl.start:
+                bound = 2 * length * U32 * absprod(i, sl)
+                d = (got[sl] - ref[sl]).abs()
+                worst = max(worst, float(torch.where(d == 0, 0.0, d / bound).max()))
+                ok &= bool((d <= bound).all())
+        rec[name] = {"max_abs_err": float((got - ref).abs().max()), "err_over_bound": worst,
+                     "within_bound": ok, "rows_past_groups_zero": bool(
+                         got[offs[-1]:].abs().sum() == 0)}
+        del got, ref
+    got, ref = gmm_kernel.tgmm(lhs, g, sizes), gmm_kernel.tgmm_plain(lhs, g, sizes)
+    torch.cuda.synchronize()
+    worst, ok = 0.0, bool(torch.isfinite(got).all())
+    for i in range(len(offs) - 1):
+        sl = slice(offs[i], offs[i + 1])
+        if sl.stop == sl.start:
+            ok &= bool(got[i].abs().max() == 0)     # an empty group: zeros
+            continue
+        bound = 2 * (sl.stop - sl.start) * U32 * (lf[sl].abs().T @ g[sl].abs())
+        d = (got[i] - ref[i]).abs()
+        worst = max(worst, float(torch.where(d == 0, 0.0, d / bound).max()))
+        ok &= bool((d <= bound).all())
+    rec["tgmm"] = {"max_abs_err": float((got - ref).abs().max()), "err_over_bound": worst,
+                   "within_bound": ok}
+    return rec
+
+
+@torch.inference_mode()
+def gmm_times(lhs, rhs, sizes, g) -> dict:
+    """Per launch: kernel, plain version, library yardstick and bound, for
+    each of the three products."""
+    (m, k), n, e = lhs.shape, rhs.shape[2], rhs.shape[0]
+    offs = [0] + np.cumsum(sizes.tolist()).tolist()
+    out_f = torch.empty(m, n, device=lhs.device)
+    out_t = torch.empty(m, k, device=lhs.device)
+    out_w = torch.empty(e, k, n, device=lhs.device)
+    lf, rf = lhs.float(), rhs.float()
+    elt = lhs.element_size()
+    bound_ms, bound_by = gmm_bound(m, k, n, e, elt)
+    cases = {
+        "gmm": (lambda: gmm_kernel.gmm(lhs, rhs, sizes),
+                lambda: gmm_kernel.gmm_plain(lhs, rhs, sizes),
+                lambda: segment_mm(lf, rf, offs, out_f)),
+        "gmm_transposed": (lambda: gmm_kernel.gmm(g, rhs, sizes, transpose_rhs=True),
+                           lambda: gmm_kernel.gmm_plain(g, rhs, sizes, True),
+                           lambda: segment_mm(g, rf, offs, out_t, transpose=True)),
+        "tgmm": (lambda: gmm_kernel.tgmm(lhs, g, sizes),
+                 lambda: gmm_kernel.tgmm_plain(lhs, g, sizes),
+                 lambda: segment_mm(lf, g, offs, out_w, weight_grad=True)),
+    }
+    rec = {}
+    for name, (kern, plain, lib) in cases.items():
+        kernel_ms = cuda_ms(kern, reps=5, warmup=1)
+        rec[name] = {"kernel_ms": kernel_ms, "plain_ms": cuda_ms(plain, reps=3, warmup=1),
+                     "library_ms": cuda_ms(lib, reps=5, warmup=1), "bound_ms": bound_ms,
+                     "bound_by": bound_by, "kernel_tflops": 2 * m * k * n / kernel_ms / 1e9}
+    return rec
+
+
+def check_gmm(rec: dict, what: str) -> None:
+    for name in ("gmm", "gmm_transposed", "tgmm"):
+        check(rec[name]["within_bound"], f"{what}: {name} kernel vs plain within 2·n·u·Σ|ab|")
+    for name in ("gmm", "gmm_transposed"):
+        check(rec[name]["rows_past_groups_zero"], f"{what}: {name} rows past the groups are zero")
+
+
+def phase_gmm_kernel(dev) -> dict:
+    """The three products at the six level shapes of the B=16 training step
+    (float32, routed sizes), then one bf16 shape and the edge cases."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shapes = []
+    for lvl, (t, d) in enumerate(zip(GMM_LEVEL_TOKENS, MOE_WIDTHS)):
+        sizes = routed_sizes(t, seed=40 + lvl, dev=dev)
+        shapes += [(f"level{lvl}_w1", sizes, d, 2 * d, torch.float32),
+                   (f"level{lvl}_w2", sizes, 2 * d, d, torch.float32)]
+    edges = [
+        ("level1_w1_bf16", routed_sizes(GMM_LEVEL_TOKENS[1], 41, dev), 256, 512, torch.bfloat16),
+        ("zero_group", torch.tensor([5000, 0, 3000, 1234], dtype=torch.int32, device=dev), 128,
+         256, torch.float32),
+        ("collapse", torch.tensor([0, 0, 8192, 0], dtype=torch.int32, device=dev), 128, 256,
+         torch.float32),
+        ("ragged_rows", torch.tensor([1000, 37, 500, 4], dtype=torch.int32, device=dev), 256, 128,
+         torch.float32),
+    ]
+    report = {}
+    for seed, (name, sizes, k, n, dtype) in enumerate(shapes + edges):
+        lhs, rhs, g = gmm_problem(sizes, k, n, dtype, 50 + seed, dev)
+        rec = {"M": int(lhs.shape[0]), "K": k, "N": n, "E": int(sizes.shape[0]),
+               "sizes": sizes.tolist(), "dtype": str(dtype).replace("torch.", ""),
+               **gmm_compare(lhs, rhs, sizes, g)}
+        if name.startswith("level") and dtype == torch.float32:
+            for kname, t in gmm_times(lhs, rhs, sizes, g).items():
+                rec[kname].update(t)
+        report[name] = rec
+        del lhs, rhs, g
+        torch.cuda.empty_cache()
+    emit({"phase": "gmm_kernel",
+          "tolerance": "each element within 2·n·u·Σ|aᵢbᵢ|, u = 2^-24, n = K (gmm), N "
+                       "(transposed), the segment length (tgmm); TF32 off",
+          "cases": report, **tf32_state()})
+    for name, rec in report.items():
+        check_gmm(rec, f"gmm {name}")
+    return report
+
+
+def gmm_kernel_entries(report: dict, launches: dict) -> list:
+    """The ``kernels`` entries of csrc/gmm.cu: each product summed over the
+    six launches of a training step (three levels × two FFN products)."""
+    levels = [r for name, r in report.items()
+              if name.startswith("level") and "kernel_ms" in r["gmm"]]
+    replaces = {"gmm": "multimodal_moe_tpu/models/moe.py:281,285 (megablox gmm in moe_apply_gmm)",
+                "gmm_transposed": "multimodal_moe_tpu/models/moe.py:281,285 (megablox gmm VJP: "
+                                  "gmm with transpose_rhs)",
+                "tgmm": "multimodal_moe_tpu/models/moe.py:281,285 (megablox gmm VJP: tgmm)"}
+    entries = []
+    for name, rep in replaces.items():
+        total = lambda key: float(sum(r[name][key] for r in levels))  # noqa: E731
+        ops_ms = sum(r[name]["bound_ms"] for r in levels if r[name]["bound_by"] == "operations")
+        entries.append({
+            "name": name, "route": "cuda", "source": "multimodal_moe_torch/csrc/gmm.cu",
+            "replaces": rep, "launches": launches[name],
+            "max_abs_err": max(r[name]["max_abs_err"] for r in report.values()),
+            "ms": total("kernel_ms"), "kernel_ms": total("kernel_ms"),
+            "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+            "bound_by": "operations" if ops_ms >= total("bound_ms") / 2 else "bytes",
+            "library_ms": total("library_ms"),
+            "per_launch": [{"M": r["M"], "K": r["K"], "N": r["N"],
+                            **{k: r[name][k] for k in ("kernel_ms", "plain_ms", "library_ms",
+                                                        "bound_ms", "kernel_tflops")}}
+                           for r in levels],
+        })
+    return entries
+
+
+def yolo_trainer(dev, b: int, moe: bool = True, dispatch: str = "gmm", template=None,
+                 **cfg_kw) -> DetectionTrainer:
+    """scripts/train_moe.py's model and trainer (MoE-YOLO-s, E=4, k=2, cf
+    1.25, ``moe_yolo_loss``) or scripts/train_yolo.py's (YOLO-s, the
+    trainer's default ``yolo_loss``), float32, with DetTrainConfig's
+    defaults (SGD-Nesterov, lr0 0.01, momentum 0.937, wd 5e-4, 3 warm-up
+    epochs, HSV jitter + flips); random weights from seed 0."""
+    if template is None:
+        gen = torch.Generator().manual_seed(0)
+        template = (MoEYoloDetector(num_classes=1, variant="s", num_experts=MOE_E, k=MOE_K,
+                                    capacity_factor=MOE_CF, dispatch=dispatch, generator=gen)
+                    if moe else YoloDetector(num_classes=1, variant="s", generator=gen))
+    cfg = DetTrainConfig(**{**dict(variant="s", img_h=IMG_H, img_w=IMG_W, batch=b), **cfg_kw})
+    kw = {"loss_fn": moe_yolo_loss} if moe else {}
+    return DetectionTrainer(template, cfg, steps_per_epoch=RT_STEPS_PER_EPOCH, device=dev, **kw)
+
+
+def yolo_train_batch(b: int, seed: int, dev) -> dict:
+    """``rt_train_batch``'s frames and 96 ground-truth slots, and one
+    seeded solar bin per frame."""
+    return {**rt_train_batch(b, seed, dev), "solar_bin": context_ids(b, seed + 1, dev)}
+
+
+def moe_level_io(model, store: dict) -> list:
+    """Hooks that keep each MoE level's inputs and its output's gradient."""
+    def keep(i):
+        def hook(module, args, out):
+            rec = store.setdefault(i, {})
+            rec["args"] = tuple(a.detach() for a in args)
+            out[0].register_hook(lambda g: rec.update(grad=g.detach()))
+        return hook
+    return [m.register_forward_hook(keep(i)) for i, m in enumerate(moe_levels(model))]
+
+
+def moe_level_replay(template, io: dict, picks: list, card_grads: dict) -> dict:
+    """Each MoE level of the card's step again on the CPU, on the card's
+    own inputs, expert choice and output gradient (the level's share of
+    the aux loss included): its parameter gradients (gmm, transposed gmm
+    and tgmm on the card, the plain versions here) against the card's."""
+    errs = {}
+    for i, rec in sorted(io.items()):
+        level = copy.deepcopy(moe_levels(template)[i]).train()
+        tokens, ctx = (a.cpu() for a in rec["args"])
+        with topk_selection(moe_module, replay=[picks[i].cpu()]):
+            out, aux = level(tokens, ctx)
+        ((out * rec["grad"].cpu()).sum() + aux["moe_aux_loss"] / 3).backward()
+        cpu = {f"moe_level{i}.{k}": p.grad for k, p in level.named_parameters()}
+        errs[f"moe_level{i}"] = rel_err({k: card_grads[k] for k in cpu}, cpu)
+    return errs
+
+
+def phase_moe_yolo_train_fp32(dev) -> dict:
+    """One train step of MoE-YOLO-s on ``gmm`` at B=1, card against CPU,
+    TF32 off, with the same weights, batch and augmentation draws."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b = 1
+    trainer = yolo_trainer(dev, b)
+    cpu_trainer = yolo_trainer(torch.device("cpu"), b, template=trainer.model)
+    batch = yolo_train_batch(b, seed=13, dev=dev)
+    draws = {"augment": augment_draws(b, torch.Generator().manual_seed(14), torch.device("cpu"))}
+    card_draws = {"augment": {k: v.to(dev) for k, v in draws["augment"].items()}}
+    assigned = []
+
+    def record(real):
+        def assign(*args):
+            out = real(*args)
+            assigned.append(out)
+            return out
+        return assign
+
+    before = (gmm_kernel.gmm_launches, gmm_kernel.tgmm_launches)
+    picks, io = [], {}
+    with topk_selection(moe_module, record=picks), patched(tal_module, "assign_targets", record):
+        card = run_train_step(trainer, batch, card_draws, layer_io=io, io_hooks=moe_level_io)
+    torch.cuda.synchronize()
+    launches = {"gmm": gmm_kernel.gmm_launches - before[0],
+                "tgmm": gmm_kernel.tgmm_launches - before[1]}
+
+    # The CPU takes the card's expert choice and assignment, and counts
+    # where its own would differ.
+    differ = {"tokens_top2": [], "anchors_fg": 0, "anchors_fg_card": 0}
+    card_picks = [p.cpu() for p in picks]
+
+    def replay_select(real):
+        def select(scores, k):
+            own = real(scores, k)[1]
+            idx = card_picks[len(differ["tokens_top2"])]
+            differ["tokens_top2"].append(int((torch.sort(own, -1).values
+                                              != torch.sort(idx, -1).values).any(-1).sum()))
+            return torch.gather(scores, 1, idx), idx
+        return select
+
+    def replay_assign(real):
+        def assign(*args):
+            own = real(*args)
+            ref = tal_module.AssignResult(*(t.cpu() for t in assigned[0]))
+            differ["anchors_fg"] = int((own.fg_mask != ref.fg_mask).sum())
+            differ["anchors_fg_card"] = int(ref.fg_mask.sum())
+            return ref
+        return assign
+
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    with patched(moe_module, "stable_topk", replay_select), \
+            patched(tal_module, "assign_targets", replay_assign):
+        cpu = run_train_step(cpu_trainer, cpu_batch, draws)
+    level_errs = moe_level_replay(trainer.model, io, picks, card["grads"])
+    groups = {}
+    for k in cpu["grads"]:
+        groups.setdefault(k.split(".")[0], []).append(k)
+    step_errs = {g: rel_err({k: card["grads"][k] for k in keys}, {k: cpu["grads"][k] for k in keys})
+                 for g, keys in groups.items()}
+    rec = {"phase": "moe_yolo_train_fp32", "model": "moe-yolo-s E=4 k=2 cf=1.25 dispatch=gmm",
+           "batch": b, "img_hw": [IMG_H, IMG_W], "gt_valid": int(batch["gt_mask"].sum()),
+           "launches_per_step": launches, "loss": {"card": card["metrics"]["loss"],
+                                                   "cpu": cpu["metrics"]["loss"]},
+           "metrics_card": card["metrics"], "metrics_cpu": cpu["metrics"],
+           "replayed_from_card": differ, "step_grad_rel_err_by_module": step_errs,
+           "moe_level_grad_rel_err": level_errs,
+           "tolerance": ("the loss rtol 1e-3 (the CPU replays the card's expert choice and "
+                         "assignment; train-mode batch statistics sum in other orders); each "
+                         "MoE level on the card's own inputs, expert choice and output gradient: "
+                         "‖card − cpu‖ ≤ 1e-4·‖cpu‖ over its parameter gradients"),
+           **tf32_state()}
+    emit(rec)
+    check(launches == {"gmm": 12, "tgmm": 6},
+          f"MoE-YOLO train step launched gmm / tgmm {launches}, not 12 and 6")
+    check(abs(rec["loss"]["card"] - rec["loss"]["cpu"]) <= 1e-3 * abs(rec["loss"]["cpu"]),
+          "card vs CPU loss")
+    check(len(level_errs) == 3, "every MoE level replayed")
+    for level, e in level_errs.items():
+        check(e <= 1e-4, f"card vs CPU gradient of {level} on the card's inputs: {e:.2e}")
+    del trainer, cpu_trainer, card, cpu, io
+    torch.cuda.empty_cache()
+    return rec
+
+
+class YoloStepSplit:
+    """CUDA events around the parts of one YOLO ``train_step``: augment,
+    forward (trunk to the neck's output, each MoE level, head and decode),
+    loss with the TAL assignment inside it, backward, optimizer + EMA; the
+    forward gmm launches are read when the loss starts."""
+
+    def __init__(self, trainer, state):
+        self.trainer, self.state, self.events = trainer, state, {}
+        self.forward_gmm = None
+
+    def mark(self, name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        self.events[name] = e
+
+    def run(self, batch) -> dict:
+        model, real_loss, apply = self.state.model, self.trainer.loss_fn, self.state.apply_gradients
+        levels = moe_levels(model) if hasattr(model, "moe_level0") else []
+        hooks = [model.register_forward_pre_hook(lambda *a: self.mark("forward0")),
+                 model.neck.register_forward_hook(lambda *a: self.mark("trunk1")),
+                 model.register_forward_hook(lambda *a: self.mark("forward1"))]
+        hooks += [m.register_forward_hook(lambda *a, i=i: self.mark(f"level{i}"))
+                  for i, m in enumerate(levels)]
+        start = gmm_kernel.gmm_launches
+
+        def loss_fn(*a, **k):
+            self.forward_gmm = gmm_kernel.gmm_launches - start
+            self.mark("loss0")
+            out = real_loss(*a, **k)
+            self.mark("loss1")
+            return out
+
+        def timed_assign(real):
+            def assign(*a):
+                self.mark("assign0")
+                out = real(*a)
+                self.mark("assign1")
+                return out
+            return assign
+
+        def step_apply(grads):
+            self.mark("opt0")
+            out = apply(grads)
+            self.mark("opt1")
+            return out
+
+        self.trainer.loss_fn, self.state.apply_gradients = loss_fn, step_apply
+        try:
+            with patched(tal_module, "assign_targets", timed_assign):
+                self.mark("step0")
+                self.trainer.train_step(self.state, batch)
+                self.mark("step1")
+            torch.cuda.synchronize()
+        finally:
+            self.trainer.loss_fn = real_loss
+            del self.state.apply_gradients
+            for h in hooks:
+                h.remove()
+        ev = self.events
+        span = lambda a, b: ev[a].elapsed_time(ev[b])  # noqa: E731
+        out = {"step_ms": span("step0", "step1"), "augment_ms": span("step0", "forward0"),
+               "forward_ms": span("forward0", "forward1"), "trunk_ms": span("forward0", "trunk1")}
+        prev = "trunk1"
+        for i in range(len(levels)):
+            out[f"moe_level{i}_ms"] = span(prev, f"level{i}")
+            prev = f"level{i}"
+        out["head_decode_ms"] = span(prev, "forward1")
+        out.update({"loss_ms": span("loss0", "loss1"), "assign_ms": span("assign0", "assign1"),
+                    "backward_ms": span("loss1", "opt0"), "optimizer_ema_ms": span("opt0", "opt1")})
+        return out
+
+
+def profile_step(trainer, state, batch, top: int = 12) -> dict:
+    """The ``top`` kernels of one train step by their time on the card
+    (``torch.profiler``), in ms, and the sum of all kernel time in the step
+    (kernels on one stream: the card's busy time)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        rows.append((e.key, us / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    return {"kernel_ms_total": sum(ms for _, ms, _ in rows),
+            "top_kernels": [{"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in rows[:top]]}
+
+
+def train_headline(trainer, batch, dev, reps: int = 5) -> dict:
+    """Step ms over ``reps`` steps after one warm-up, img/s, peak memory,
+    the mean split of three instrumented steps and a profile of one more
+    step, on one state."""
+    state = trainer.init_state()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = cuda_ms(lambda: trainer.train_step(state, batch), reps=reps, warmup=1)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    splits = []
+    for _ in range(3):
+        sp = YoloStepSplit(trainer, state)
+        splits.append({**sp.run(batch), "forward_gmm_launches": sp.forward_gmm})
+    split = {k: float(np.mean([s[k] for s in splits])) for k in splits[0]}
+    b = batch["image"].shape[0]
+    return {"step_ms": step_ms, "img_per_s": b * 1000.0 / step_ms, "peak_mem_gib": peak_gib,
+            "split": split, "profile": profile_step(trainer, state, batch)}
+
+
+def phase_moe_yolo_train(dev, smi: str) -> dict:
+    """The slice's headline: the B=16 step of scripts/train_moe.py on
+    ``dispatch="gmm"``, TF32 on; the same step on ``auto``; then a 20-step
+    learning check on one fixed batch."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    batch = yolo_train_batch(YOLO_B, seed=15, dev=dev)
+    rec = {"phase": "moe_yolo_train", "model": "moe-yolo-s E=4 k=2 cf=1.25 arch=tpu float32",
+           "config": "scripts/train_moe.py:151-172 (B=16, SGD-Nesterov lr0 0.01, 96 GT slots, "
+                     "HSV + hflip, one solar bin a frame)", "batch": YOLO_B,
+           "img_hw": [IMG_H, IMG_W], "tokens_per_level": list(GMM_LEVEL_TOKENS),
+           "gt_valid": int(batch["gt_mask"].sum()), "gpu": smi, "dispatch": {}, **tf32_state()}
+    for dispatch in ("gmm", "auto"):
+        trainer = yolo_trainer(dev, YOLO_B, dispatch=dispatch)
+        state = trainer.init_state()
+        # The main path: the counts from zero over one train step (the
+        # forward's gmm launches read when the loss starts).
+        real_loss, seen = trainer.loss_fn, {}
+
+        def loss_fn(*a, **k):
+            seen["gmm_forward"] = gmm_kernel.gmm_launches
+            return real_loss(*a, **k)
+
+        trainer.loss_fn = loss_fn
+        gmm_kernel.gmm_launches = gmm_kernel.tgmm_launches = 0
+        _, metrics = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        trainer.loss_fn = real_loss
+        r = {"resolved_dispatch": [moe_module.resolve_dispatch(dispatch, t, MOE_E)
+                                   for t in GMM_LEVEL_TOKENS],
+             "launches_per_step": {"gmm": gmm_kernel.gmm_launches,
+                                   "tgmm": gmm_kernel.tgmm_launches,
+                                   "gmm_forward": seen["gmm_forward"]},
+             "first_step_metrics": {k: float(v) for k, v in metrics.items()}}
+        del state
+        r.update(train_headline(trainer, batch, dev))
+        rec["dispatch"][dispatch] = r
+        del trainer
+        torch.cuda.empty_cache()
+
+    # Learning check: one fixed batch, B=4, no augmentation, SGD-Nesterov at
+    # a flat lr 1e-3 from step 1 (at lr0 0.01 without the 3-epoch warmup a
+    # random-weight YOLO overshoots within 20 steps).
+    trainer4 = yolo_trainer(dev, 4, warmup_epochs=0.0, lr0=1e-3, lrf=1.0, hsv_aug=False,
+                            hflip_prob=0.0)
+    state4 = trainer4.init_state()
+    batch4 = yolo_train_batch(4, seed=16, dev=dev)
+    losses = [float(trainer4.train_step(state4, batch4)[1]["loss"]) for _ in range(20)]
+    rec["learning_check"] = {"batch": 4, "steps": 20, "dispatch": "gmm", "lr": 1e-3,
+                             "losses": losses, "first5_mean": float(np.mean(losses[:5])),
+                             "last5_mean": float(np.mean(losses[-5:]))}
+    del trainer4, state4, batch4
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit(rec)
+    gmm, auto = rec["dispatch"]["gmm"], rec["dispatch"]["auto"]
+    check(gmm["launches_per_step"] == {"gmm": 12, "tgmm": 6, "gmm_forward": 6},
+          f"the gmm step launched gmm / tgmm {gmm['launches_per_step']}, not 12 (6 in the "
+          "forward) and 6")
+    check(auto["resolved_dispatch"] == ["sweep"] * 3,
+          f"auto resolves to {auto['resolved_dispatch']}")
+    check(auto["launches_per_step"] == {"gmm": 0, "tgmm": 0, "gmm_forward": 0},
+          "the auto (sweep) step launches no gmm")
+    for d, r in rec["dispatch"].items():
+        check(all(np.isfinite(v) for v in r["first_step_metrics"].values()), f"finite {d} metrics")
+    check(np.isfinite(losses).all() and rec["learning_check"]["last5_mean"]
+          < rec["learning_check"]["first5_mean"] and losses[-1] < losses[0],
+          "the loss falls over 20 steps on a fixed batch")
+    return rec
+
+
+def phase_yolo_train(dev, smi: str) -> dict:
+    """The B=16 YOLO-s step of scripts/train_yolo.py (the trainer's default
+    yolo_loss), TF32 on."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    batch = yolo_train_batch(YOLO_B, seed=17, dev=dev)
+    trainer = yolo_trainer(dev, YOLO_B, moe=False)
+    state = trainer.init_state()
+    _, metrics = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    rec = {"phase": "yolo_train", "model": "yolo-s arch=tpu float32",
+           "config": "scripts/train_yolo.py (B=16, SGD-Nesterov lr0 0.01, 96 GT slots, "
+                     "HSV + hflip)",
+           "batch": YOLO_B, "img_hw": [IMG_H, IMG_W], "loss_fn": trainer.loss_fn.__name__,
+           "first_step_metrics": {k: float(v) for k, v in metrics.items()}, "gpu": smi,
+           **tf32_state()}
+    del state
+    rec.update(train_headline(trainer, batch, dev))
+    del trainer, batch
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit(rec)
+    check(rec["loss_fn"] == "yolo_loss", "YOLO trains with the default yolo_loss")
+    check(all(np.isfinite(v) for v in rec["first_step_metrics"].values()), "finite YOLO metrics")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -1690,7 +2284,15 @@ def main() -> int:
         per_level, moe_serving["routes"]["fused"]["moe_ffn_fwd_launches"],
         [fp32_ffn_err] + [c["max_abs_err"] for c in ffn_cases.values()]
         + [lv["max_abs_err"] for lv in per_level])
-    emit({"kernels": [nms_entry, deform_entry, bwd_entry, ffn_entry]})
+    gmm_cases = phase_gmm_kernel(dev)
+    phase_moe_yolo_train_fp32(dev)
+    moe_train = phase_moe_yolo_train(dev, smi)
+    phase_yolo_train(dev, smi)
+    counts = moe_train["dispatch"]["gmm"]["launches_per_step"]
+    gmm_entries = gmm_kernel_entries(gmm_cases, {
+        "gmm": counts["gmm_forward"], "gmm_transposed": counts["gmm"] - counts["gmm_forward"],
+        "tgmm": counts["tgmm"]})
+    emit({"kernels": [nms_entry, deform_entry, bwd_entry, ffn_entry, *gmm_entries]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

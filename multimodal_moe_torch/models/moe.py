@@ -12,6 +12,9 @@ Switch balance loss and the ST-MoE z-loss, and the dispatch modes of
   row is the trash slot, expert FFN, clipped gather; with ``use_fused_ffn``
   the expert FFN is the CUDA kernel of :mod:`..ops.moe_kernels` and the
   capacity is rounded up to its tile;
+* ``"gmm"``: the (token, expert) pairs sorted by expert and both FFN
+  products as grouped GEMMs over the expert segments (dropless; the CUDA
+  kernels of :mod:`..ops.gmm_kernel`, forward and backward);
 * ``"auto"``: dense up to 4096 tokens, then sweep up to 16 experts, else
   sparse (:func:`resolve_dispatch`).
 
@@ -29,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import moe_kernels
+from ..ops import gmm_kernel, moe_kernels
 from ..ops.nms import stable_topk
 
 # 5 labelled solar-elevation bins + "missing" (data/solar.py of the JAX package).
@@ -174,6 +177,41 @@ def moe_apply_sweep(tokens, expert_idx, gates, w1, b1, w2, b2, *,
     return (out_e * comb.T.to(dtype)[:, :, None]).sum(dim=0)
 
 
+def moe_apply_gmm(tokens, expert_idx, gates, w1, b1, w2, b2, *,
+                  activation=F.silu) -> torch.Tensor:
+    """Dropless grouped-GEMM dispatch (megablox ``gmm``): sort the ``T·k``
+    (token, expert) pairs by expert (stably, as ``jnp.argsort``), run both
+    FFN products as grouped GEMMs over the contiguous expert segments in
+    float32, cast to the compute type and add each row's expert bias, then
+    unsort and combine with the gate weights."""
+    t, d = tokens.shape
+    e = w1.shape[0]
+    k = expert_idx.shape[1]
+    dtype = tokens.dtype
+
+    flat_expert = expert_idx.reshape(-1)                                    # (T·k,)
+    order = torch.argsort(flat_expert, stable=True)
+    token_ids = torch.arange(t * k, device=tokens.device) // k
+    src = tokens[token_ids[order]]                                          # (T·k, d) sorted
+    # The segment sizes stay on the device (a bincount would read its
+    # length on the host).
+    group_sizes = torch.zeros(e, dtype=torch.long, device=tokens.device).scatter_add_(
+        0, flat_expert, torch.ones_like(flat_expert)).to(torch.int32)
+    eid = flat_expert[order]
+
+    # Each row's expert bias by index_select, whose gradient adds the rows
+    # with atomics: an advanced-index gather's gradient walks the ~T·k/E
+    # repeats of each expert serially, one warp an expert (PERF.md).
+    mid = activation(gmm_kernel.grouped_matmul(src, w1.to(dtype), group_sizes).to(dtype)
+                     + b1[:, 0].index_select(0, eid).to(dtype))
+    out_sorted = (gmm_kernel.grouped_matmul(mid, w2.to(dtype), group_sizes).to(dtype)
+                  + b2[:, 0].index_select(0, eid).to(dtype))
+
+    inv = torch.empty_like(order).scatter_(0, order, torch.arange(t * k, device=order.device))
+    weighted = out_sorted[inv] * gates.reshape(-1, 1).to(dtype)
+    return weighted.reshape(t, k, d).sum(dim=1)
+
+
 def resolve_dispatch(dispatch: str, num_tokens: int, num_experts: int) -> str:
     """Resolve ``dispatch="auto"`` to the mode :class:`MoEFFN` runs."""
     if dispatch != "auto":
@@ -209,7 +247,9 @@ class ContextGate(nn.Module):
         return self
 
     def forward(self, tokens, context_ids):
-        return tokens.float() @ self.router_kernel + self.context_bias[context_ids]
+        # index_select: its gradient adds the T rows into the few bins with
+        # atomics (an advanced-index gather's walks each bin's rows serially).
+        return tokens.float() @ self.router_kernel + self.context_bias.index_select(0, context_ids)
 
 
 class ContextRouter(nn.Module):
@@ -294,13 +334,10 @@ class MoEFFN(nn.Module):
 
         mode = resolve_dispatch(self.dispatch, t, e)
         x = tokens.to(self.dtype)
-        if mode == "gmm":
-            raise NotImplementedError(
-                "dispatch='gmm' (the grouped GEMM, kernel B3) is not ported yet "
-                "(ROADMAP.md queue A item 4)")
-        if mode == "sweep":
+        if mode in ("gmm", "sweep"):
             topk_idx, gates, aux_loss, expert_load = route_top_k_dropless(logits, k=self.k)
-            out = moe_apply_sweep(x, topk_idx, gates, w1, b1, w2, b2)
+            apply = moe_apply_gmm if mode == "gmm" else moe_apply_sweep
+            out = apply(x, topk_idx, gates, w1, b1, w2, b2)
         elif mode == "dense":
             r = route_top_k(logits, k=self.k, capacity=capacity)
             expert_in = torch.einsum("tec,td->ecd", r.dispatch.to(x.dtype), x)

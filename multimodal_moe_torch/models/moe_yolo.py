@@ -2,7 +2,8 @@
 
 Counterpart of ``multimodal_moe_tpu/models/moe_yolo.py``: the YOLO trunk
 (backbone + PAN neck), one context-routed :class:`.moe.MoEFFN` on each neck
-level (``moe_level{i}``), then the YOLO head and decode. Each spatial
+level (``moe_level{i}``), then the YOLO head and decode; and its training
+loss, :func:`moe_yolo_loss`. Each spatial
 location of a level is a token, in NHWC row-major order; every token of an
 image carries the image's solar-context bin.
 """
@@ -13,6 +14,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..losses.tal import yolo_loss
 from .moe import NUM_SOLAR_BINS, MoEFFN
 from .yolo import YoloDetector, scaled_channels
 
@@ -20,7 +22,8 @@ from .yolo import YoloDetector, scaled_channels
 class MoEYoloDetector(YoloDetector):
     """YOLO trunk + per-level context-routed MoE FFN + detect head.
 
-    ``forward(images, context_ids=None)`` takes NHWC float images and one
+    ``forward(images, train=False, context_ids=None)`` (the JAX argument
+    order: pass ``context_ids`` by keyword) takes NHWC float images and one
     context bin per image (default: the "missing" bin) and returns the
     YOLO outputs plus ``moe_aux_loss`` (the mean over levels) and
     ``expert_load`` ``(3, E)``. The routers stay float32 in a bf16 model.
@@ -38,8 +41,9 @@ class MoEYoloDetector(YoloDetector):
                          dispatch=dispatch, generator=generator)
             self.add_module(f"moe_level{i}", moe.to(dtype))
 
-    def forward(self, images: torch.Tensor,
+    def forward(self, images: torch.Tensor, train: bool = False,
                 context_ids: "Optional[torch.Tensor]" = None) -> "Dict[str, torch.Tensor]":
+        self._check_mode(train)
         b = images.shape[0]
         if context_ids is None:
             context_ids = torch.full((b,), NUM_SOLAR_BINS - 1, dtype=torch.long)
@@ -61,3 +65,14 @@ class MoEYoloDetector(YoloDetector):
         out["moe_aux_loss"] = aux_total / len(feats)
         out["expert_load"] = torch.stack(loads)                   # (levels, E)
         return out
+
+
+def moe_yolo_loss(outputs, gt_labels, gt_boxes, gt_mask):
+    """YOLO detection loss plus the MoE auxiliary loss (in the metrics as
+    ``moe_aux_loss``; ``loss`` is the total)."""
+    total, metrics = yolo_loss(outputs, gt_labels, gt_boxes, gt_mask)
+    aux = outputs.get("moe_aux_loss")
+    if aux is not None:
+        total = total + aux
+        metrics = dict(metrics, moe_aux_loss=aux, loss=total)
+    return total, metrics

@@ -257,9 +257,23 @@ class YoloDetector(nn.Module):
             )
         return self._anchor_cache[key]
 
-    def forward(self, images: torch.Tensor) -> "Dict[str, torch.Tensor]":
+    def forward(self, images: torch.Tensor, train: bool = False) -> "Dict[str, torch.Tensor]":
+        """``train`` must agree with the module mode (``model.train()`` /
+        ``model.eval()``): BatchNorm follows the mode, as Flax's follows
+        ``train``."""
+        self._check_mode(train)
         x = images.to(self.dtype).permute(0, 3, 1, 2)
         return self._head_outputs(self.neck(self.backbone(x)), images)
+
+    def _check_mode(self, train) -> None:
+        if not isinstance(train, bool):
+            raise TypeError(f"train must be a bool, got {type(train).__name__} (pass "
+                            "context_ids by keyword)")
+        if train != self.training:
+            raise ValueError(
+                f"forward(train={train}) on a model in {'train' if self.training else 'eval'} "
+                "mode: BatchNorm follows the mode, so call model.train() or model.eval() first"
+            )
 
     def _head_outputs(self, feats, images: torch.Tensor) -> "Dict[str, torch.Tensor]":
         """Head maps → the five-key output dict, for input ``images``."""

@@ -1,12 +1,14 @@
 """Box geometry in absolute-pixel xyxy: conversions, area, IoU.
 
-Counterpart of ``multimodal_moe_tpu/ops/boxes.py`` (GIoU for the DETR loss;
-CIoU waits for YOLO training). The arithmetic order is the JAX module's,
+Counterpart of ``multimodal_moe_tpu/ops/boxes.py`` (GIoU for the DETR loss,
+CIoU for the YOLO loss). The arithmetic order is the JAX module's,
 because NMS decisions at exactly the threshold depend on it:
 ``inter / ((area_a + area_b) - inter + EPS)``.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -76,3 +78,23 @@ def pairwise_giou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     b = boxes_b[..., None, :, :]
     shape = torch.broadcast_shapes(a.shape, b.shape)
     return elementwise_giou(a.expand(shape), b.expand(shape))
+
+
+def elementwise_ciou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """Complete IoU (the YOLO box loss), aligned ``(..., 4)``. The
+    aspect-ratio weight ``alpha`` is a constant for the gradient (JAX's
+    ``stop_gradient``); ``EPS`` sits in the diagonal and in the widths."""
+    iou = elementwise_iou(boxes_a, boxes_b)
+    ctr_a = (boxes_a[..., 0:2] + boxes_a[..., 2:4]) * 0.5
+    ctr_b = (boxes_b[..., 0:2] + boxes_b[..., 2:4]) * 0.5
+    rho2 = ((ctr_a - ctr_b) ** 2).sum(-1)
+    lt = torch.minimum(boxes_a[..., 0:2], boxes_b[..., 0:2])
+    rb = torch.maximum(boxes_a[..., 2:4], boxes_b[..., 2:4])
+    diag2 = ((rb - lt) ** 2).sum(-1) + EPS
+    wh_a = (boxes_a[..., 2:4] - boxes_a[..., 0:2]).clamp_min(EPS)
+    wh_b = (boxes_b[..., 2:4] - boxes_b[..., 0:2]).clamp_min(EPS)
+    v = (4.0 / (math.pi ** 2)) * (
+        torch.atan(wh_b[..., 0] / wh_b[..., 1]) - torch.atan(wh_a[..., 0] / wh_a[..., 1])
+    ) ** 2
+    alpha = (v / (1.0 - iou + v + EPS)).detach()
+    return iou - rho2 / diag2 - alpha * v

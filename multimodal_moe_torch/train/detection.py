@@ -1,7 +1,8 @@
 """Detection trainer: the train step, the epoch loop, best/last checkpoints.
 
 Counterpart of ``multimodal_moe_tpu/train/detection.py`` on one device. One
-trainer serves every detector family: the model and its loss are injected.
+trainer serves every detector family: the model and its loss are injected
+(the YOLO loss, ``losses.tal.yolo_loss``, unless another is given).
 The step is the JAX step written out: ``/255``, ``train_augment``, the
 forward in train mode (ground truth and denoising draws for a model with
 ``denoising_capable``, ``context_ids`` for one with ``context_aware``), the
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..losses.tal import yolo_loss
 from ..ops.augment import train_augment
 from .state import CheckpointManager, TrainState, make_train_state
 
@@ -64,13 +66,8 @@ class DetectionTrainer:
     ``device`` (the card unless ``torch.device("cpu")`` is given)."""
 
     def __init__(self, model: torch.nn.Module, cfg: DetTrainConfig, *,
-                 loss_fn: Optional[Callable] = None, steps_per_epoch: Optional[int] = None,
+                 loss_fn: Callable = yolo_loss, steps_per_epoch: Optional[int] = None,
                  device=None):
-        if loss_fn is None:
-            raise NotImplementedError(
-                "the JAX trainer's default loss_fn, yolo_loss, needs losses/tal.py, which "
-                "the port does not have yet; pass loss_fn (e.g. rtdetr_loss)"
-            )
         self.device = resolve_device(device)
         self.model = model
         self.cfg = cfg

@@ -9,7 +9,8 @@ each mode within 1e-5, after a check that every token's k-th and (k+1)-th
 router probabilities are further apart than twice the largest router logit
 difference between the two frameworks (routing is discrete: only there may
 a decision differ). The fused route is compared with the JAX fused route,
-whose Pallas kernel runs in interpret mode.
+whose Pallas kernel runs in interpret mode; ``gmm`` with JAX's ``gmm``
+mode (its CPU path, ``moe_apply_gmm(interpret=True)``).
 """
 
 import jax
@@ -173,7 +174,8 @@ def _assert_routing_defined(variables, tokens, ctx, tmodule, k=K):
     assert gap.min() > 2 * diff, (float(gap.min()), diff)
 
 
-@pytest.mark.parametrize("mode", ["dense", "sweep", "sparse", "sparse_capacity_2.0", "fused"])
+@pytest.mark.parametrize("mode", ["dense", "sweep", "sparse", "sparse_capacity_2.0", "fused",
+                                  "gmm"])
 def test_moe_ffn_matches_jax(ffn_problem, mode, monkeypatch):
     tokens, ctx, variables = ffn_problem
     fused = mode == "fused"
@@ -234,10 +236,13 @@ def test_fused_route_rounds_capacity_and_backpropagates(ffn_problem):
 
 
 def test_unported_modes_raise():
+    """int8 tokens and unknown modes raise; ``gmm`` (ported) runs."""
     m = tm.MoEFFN(D, E, dispatch="gmm", generator=torch.Generator().manual_seed(0))
-    x, c = torch.zeros(8, D), torch.zeros(8, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        m(x, c)
+    x = torch.randn(8, D, generator=torch.Generator().manual_seed(1))
+    c = torch.zeros(8, dtype=torch.long)
+    out, aux = m(x, c)
+    assert out.shape == (8, D) and torch.isfinite(out).all()
+    assert float(aux["expert_load"].sum()) == pytest.approx(K)
     m.dispatch = "sweep"
     with pytest.raises(NotImplementedError, match="queue A item 5"):
         m(torch.zeros(8, D, dtype=torch.int8), c)

@@ -107,7 +107,7 @@ def pair(request, flax_weights):
     hooks = [getattr(model, f"moe_level{i}").router.register_forward_hook(
         lambda m, a, o: logits.append(o.numpy())) for i in range(LEVELS)]
     with torch.inference_mode():
-        out = model(torch.from_numpy(IMAGES), torch.from_numpy(CONTEXT))
+        out = model(torch.from_numpy(IMAGES), context_ids=torch.from_numpy(CONTEXT))
     for h in hooks:
         h.remove()
     got = {k: v.numpy() for k, v in out.items()}
@@ -151,7 +151,7 @@ def test_context_changes_routing(flax_weights):
     model = _port_model("n", flax_weights("n"), "sweep")
     x = torch.from_numpy(IMAGES[:1])
     with torch.inference_mode():
-        loads = [model(x, torch.tensor([c]))["expert_load"] for c in range(6)]
+        loads = [model(x, context_ids=torch.tensor([c]))["expert_load"] for c in range(6)]
         default = model(x)["expert_load"]
     assert torch.equal(default, loads[5])  # no context: the "missing" bin
     assert any(not torch.equal(loads[0], ld) for ld in loads[1:])
@@ -170,7 +170,7 @@ def test_router_stays_fp32_in_bf16_model():
     hook = model.moe_level0.router.register_forward_hook(lambda m, a, o: logits.append(o))
     x = torch.rand(2, H, W, 3, generator=torch.Generator().manual_seed(1))
     with torch.inference_mode():
-        out = model(x, torch.tensor([0, 3]))
+        out = model(x, context_ids=torch.tensor([0, 3]))
     hook.remove()
     assert logits[0].dtype == torch.float32
     assert out["boxes"].dtype == torch.float32 and torch.isfinite(out["boxes"]).all()
@@ -213,7 +213,7 @@ def test_serving_step_with_context_matches_jax(flax_weights):
         variables, jnp.asarray(images_u8), jnp.asarray(ctx)))
     model = load_flax(tmy.MoEYoloDetector(variant="n"), variables)
     with torch.inference_mode():
-        out = model(torch.from_numpy(images_u8).float() / 255.0, torch.from_numpy(ctx))
+        out = model(torch.from_numpy(images_u8).float() / 255.0, context_ids=torch.from_numpy(ctx))
     # The top pool+1 scores are further apart than twice the frameworks' difference.
     scores = torch.sigmoid(out["cls_logits"][..., 0]).numpy()
     ref_scores = np.asarray(jax.nn.sigmoid(ref_out["cls_logits"][..., 0]))

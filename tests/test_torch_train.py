@@ -344,9 +344,14 @@ def test_early_stop_after_patience(tmp_path):
 
 
 def test_trainer_needs_a_loss_and_a_device():
+    """The default loss is the YOLO loss, as in the JAX trainer."""
+    from multimodal_moe_torch.losses.tal import yolo_loss
+    from multimodal_moe_tpu.train.detection import DetectionTrainer as JaxTrainer
+
     model = tr.RTDETRDetector(**FIT_MODEL)
-    with pytest.raises(NotImplementedError, match="losses/tal.py"):
-        td.DetectionTrainer(model, td.DetTrainConfig(), device=torch.device("cpu"))
+    trainer = td.DetectionTrainer(model, td.DetTrainConfig(), device=torch.device("cpu"))
+    assert trainer.loss_fn is yolo_loss
+    assert JaxTrainer.__init__.__kwdefaults__["loss_fn"].__name__ == "yolo_loss"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             td.DetectionTrainer(model, td.DetTrainConfig(), loss_fn=tr.rtdetr_loss)
