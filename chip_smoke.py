@@ -117,11 +117,19 @@ Phases (each prints one JSON line):
                training step (M = 2 x 219,648 / 54,912 / 13,728 rows; K, N =
                128/256, 256/128, 256/512, 512/256, 512/1024, 1024/512; E=4,
                segment sizes from a seeded router), float32 with TF32 off;
-               one bf16 shape, an empty group, the collapse case (all rows in
-               one group) and a row count that is no multiple of the tile.
-               Tolerance: each element within 2·n·u·Σ|aᵢbᵢ| (u = 2^-24, n the
-               length of its sum). Kernel, plain, library (one cuBLAS mm per
-               segment) and bound times per launch at the level shapes.
+               one bf16 shape, one mixed bf16 x float32 shape, an empty
+               group, the collapse case (all rows in one group), a row count
+               that is no multiple of the tile, tgmm segments of 1, 3, 15, 16
+               and 17 rows (the edge of the exact short-sum path) and K, N
+               below it. Tolerance: each element within 2·n·u·Σ|aᵢbᵢ|
+               (u = 2^-24, n the length of its sum), err_over_bound per case
+               (and per tgmm segment); two tgmm launches on the level-0
+               inputs bitwise equal; a NaN in lhs and in the output gradient
+               reaches the same outputs as in the plain versions. Kernel,
+               plain, library (one cuBLAS mm per segment) and bound times per
+               launch at the level shapes (the bound: bytes, or 1-3 TF32
+               products by input types at 495 TFLOP/s), and tgmm's two
+               passes' device times.
 15. moe_yolo_train_fp32 -- one DetectionTrainer.train_step of MoE-YOLO-s on
                ``dispatch="gmm"`` (scripts/train_moe.py's model and optimizer,
                random weights from seed 0) at B=1, 704x1248, 96 ground-truth
@@ -211,6 +219,7 @@ POOL, IOU, SCORE_THR, MAX_DET = 512, 0.7, 0.001, 300
 # cores and HBM bandwidth. The bound is stated against these.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12  # dense tensor cores
+PEAK_TF32_FLOPS = 495e12  # dense tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 IOU_FLOPS = 14  # min/max/sub/mul/add/div/compare per pair, areas amortised
 KERNELS = ("nms_keep", "ms_deform_fwd", "ms_deform_bwd", "moe_ffn_fwd", "gmm")
@@ -460,6 +469,27 @@ def phase_headline(dev, smi: str):
     return serving, kernel
 
 
+def ptxas_functions(log: str) -> list:
+    """Each kernel instantiation in a ``-Xptxas -v`` log with its registers
+    and spill bytes (names demangled by c++filt where the host has it)."""
+    rows, name, spill = [], None, 0
+    for line in log.splitlines():
+        if m := re.search(r"entry function '(\S+)'", line):
+            name = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = int(m.group(1)) + int(m.group(2))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            rows.append({"function": name, "registers": int(m.group(1)), "spill_bytes": spill})
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r["function"] for r in rows),
+                               capture_output=True, text=True, check=True, timeout=60)
+        for row, pretty in zip(rows, names.stdout.splitlines()):
+            row["function"] = pretty.replace("(anonymous namespace)::", "")
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return rows
+
+
 def build_kernels() -> dict:
     """Build every kernel of the port at once (one nvcc each, in parallel)."""
     t0 = time.perf_counter()
@@ -472,9 +502,7 @@ def build_kernels() -> dict:
             "library": str(libs[name].relative_to(ROOT)),
             "compiled": name in _build.build_seconds,
             "nvcc_seconds": _build.build_seconds.get(name),
-            "registers": [int(r) for r in re.findall(r"Used (\d+) registers", log)],
-            "spill_bytes": [int(a) + int(b) for a, b in
-                            re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)],
+            "functions": ptxas_functions(log),
         }
     return {"phase": "build", "seconds": time.perf_counter() - t0, "kernels": report,
             "nvcc_flags": {name: list(_build.nvcc_flags(name)) for name in KERNELS}}
@@ -1687,25 +1715,31 @@ def routed_sizes(tokens: int, seed: int, dev) -> torch.Tensor:
     return torch.bincount(idx, minlength=MOE_E).to(torch.int32)
 
 
-def gmm_problem(sizes: torch.Tensor, k: int, n: int, dtype, seed: int, dev):
+def gmm_problem(sizes: torch.Tensor, k: int, n: int, dtype, seed: int, dev, rhs_dtype=None):
     """lhs (M, K) and the output gradient g (M, N) ~ N(0, 1), rhs (E, K, N)
-    at Flax's LeCun scale; lhs and rhs in ``dtype``, g float32."""
+    at Flax's LeCun scale; lhs in ``dtype``, rhs in ``rhs_dtype`` (default
+    ``dtype``), g float32."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     m = int(sizes.sum())
     lhs = torch.randn(m, k, generator=gen, device=dev).to(dtype)
-    rhs = (torch.randn(sizes.shape[0], k, n, generator=gen, device=dev) * k ** -0.5).to(dtype)
+    rhs = (torch.randn(sizes.shape[0], k, n, generator=gen, device=dev) * k ** -0.5)
     g = torch.randn(m, n, generator=gen, device=dev)
-    return lhs, rhs, g
+    return lhs, rhs.to(rhs_dtype or dtype), g
 
 
-def gmm_bound(m, k, n, e, elt_in=4) -> "tuple[float, str]":
-    """Least time for one grouped product (M, K)·(K, N) per group: lhs,
-    rhs and the float32 output moved once over the memory rate, or 2·M·K·N
-    flops over the fp32 rate (the same for the transposed product and for
-    tgmm, whose output is (E, K, N))."""
-    nbytes = elt_in * (m * k + e * k * n) + 4 * m * n
+def gmm_bound(m, k, n, e, elt_a=4, elt_b=4) -> "tuple[float, str]":
+    """Least time for one grouped product (M, K)·(K, N) per group as the
+    kernel computes it: the operands and the float32 output moved once over
+    the memory rate, or its tensor-core products over the TF32 rate. An
+    fp32-accurate product on the tensor cores is three TF32 products of
+    2·M·K·N flops each for float32 × float32 (small·big, big·small,
+    big·big), two for a bf16 × float32 pair and one for bf16 × bf16 (a bf16
+    value is exact in TF32, its small part is zero). The same for the
+    transposed product and for tgmm: the same three arrays in other roles."""
+    nbytes = elt_a * m * k + elt_b * e * k * n + 4 * m * n
+    products = 1 + (elt_a == 4) + (elt_b == 4)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = 2 * m * k * n / PEAK_FP32_FLOPS * 1e3
+    t_ops = products * 2 * m * k * n / PEAK_TF32_FLOPS * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1722,11 +1756,12 @@ def segment_mm(lhs, rhs, offs, out, transpose=False, weight_grad=False):
 
 
 @torch.inference_mode()
-def gmm_compare(lhs, rhs, sizes, g) -> dict:
+def gmm_compare(lhs, rhs, sizes, g, repeat: bool = False) -> dict:
     """gmm, the transposed gmm (the lhs gradient) and tgmm (the rhs
     gradient) against their plain versions, each element within 2·n·u·Σ|aᵢbᵢ|
-    (n the length of its sum, u = 2⁻²⁴); the numbers are returned before any
-    check can raise."""
+    (n the length of its sum, u = 2⁻²⁴), tgmm also per segment; with
+    ``repeat``, a second tgmm launch must equal the first bitwise. The
+    numbers are returned before any check can raise."""
     offs = [0] + np.cumsum(sizes.tolist()).tolist()
     lf, rf = lhs.float(), rhs.float()
     rec = {}
@@ -1756,17 +1791,23 @@ def gmm_compare(lhs, rhs, sizes, g) -> dict:
     got, ref = gmm_kernel.tgmm(lhs, g, sizes), gmm_kernel.tgmm_plain(lhs, g, sizes)
     torch.cuda.synchronize()
     worst, ok = 0.0, bool(torch.isfinite(got).all())
+    per_group = []
     for i in range(len(offs) - 1):
         sl = slice(offs[i], offs[i + 1])
         if sl.stop == sl.start:
             ok &= bool(got[i].abs().max() == 0)     # an empty group: zeros
+            per_group.append({"rows": 0, "zero": bool(got[i].abs().max() == 0)})
             continue
         bound = 2 * (sl.stop - sl.start) * U32 * (lf[sl].abs().T @ g[sl].abs())
         d = (got[i] - ref[i]).abs()
-        worst = max(worst, float(torch.where(d == 0, 0.0, d / bound).max()))
+        seg = float(torch.where(d == 0, 0.0, d / bound).max())
+        per_group.append({"rows": sl.stop - sl.start, "err_over_bound": seg})
+        worst = max(worst, seg)
         ok &= bool((d <= bound).all())
     rec["tgmm"] = {"max_abs_err": float((got - ref).abs().max()), "err_over_bound": worst,
-                   "within_bound": ok}
+                   "within_bound": ok, "per_group": per_group}
+    if repeat:
+        rec["tgmm"]["bitwise_repeatable"] = bool(torch.equal(got, gmm_kernel.tgmm(lhs, g, sizes)))
     return rec
 
 
@@ -1780,26 +1821,68 @@ def gmm_times(lhs, rhs, sizes, g) -> dict:
     out_t = torch.empty(m, k, device=lhs.device)
     out_w = torch.empty(e, k, n, device=lhs.device)
     lf, rf = lhs.float(), rhs.float()
-    elt = lhs.element_size()
-    bound_ms, bound_by = gmm_bound(m, k, n, e, elt)
+    elt_l, elt_r, elt_g = lhs.element_size(), rhs.element_size(), g.element_size()
     cases = {
         "gmm": (lambda: gmm_kernel.gmm(lhs, rhs, sizes),
                 lambda: gmm_kernel.gmm_plain(lhs, rhs, sizes),
-                lambda: segment_mm(lf, rf, offs, out_f)),
+                lambda: segment_mm(lf, rf, offs, out_f), gmm_bound(m, k, n, e, elt_l, elt_r)),
         "gmm_transposed": (lambda: gmm_kernel.gmm(g, rhs, sizes, transpose_rhs=True),
                            lambda: gmm_kernel.gmm_plain(g, rhs, sizes, True),
-                           lambda: segment_mm(g, rf, offs, out_t, transpose=True)),
+                           lambda: segment_mm(g, rf, offs, out_t, transpose=True),
+                           gmm_bound(m, n, k, e, elt_g, elt_r)),
         "tgmm": (lambda: gmm_kernel.tgmm(lhs, g, sizes),
                  lambda: gmm_kernel.tgmm_plain(lhs, g, sizes),
-                 lambda: segment_mm(lf, g, offs, out_w, weight_grad=True)),
+                 lambda: segment_mm(lf, g, offs, out_w, weight_grad=True),
+                 gmm_bound(m, k, n, e, elt_l, elt_g)),
     }
     rec = {}
-    for name, (kern, plain, lib) in cases.items():
+    for name, (kern, plain, lib, (bound_ms, bound_by)) in cases.items():
         kernel_ms = cuda_ms(kern, reps=5, warmup=1)
         rec[name] = {"kernel_ms": kernel_ms, "plain_ms": cuda_ms(plain, reps=3, warmup=1),
                      "library_ms": cuda_ms(lib, reps=5, warmup=1), "bound_ms": bound_ms,
-                     "bound_by": bound_by, "kernel_tflops": 2 * m * k * n / kernel_ms / 1e9}
+                     "bound_by": bound_by, "bound_share": bound_ms / kernel_ms,
+                     "kernel_tflops": 2 * m * k * n / kernel_ms / 1e9}
     return rec
+
+
+@torch.inference_mode()
+def tgmm_passes(lhs, g, sizes) -> dict:
+    """The device time of tgmm's two passes a launch (``torch.profiler``)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            gmm_kernel.tgmm(lhs, g, sizes)
+        torch.cuda.synchronize()
+    passes = {"partial_ms": 0.0, "reduce_ms": 0.0}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        for key in ("partial", "reduce"):
+            if f"tgmm_{key}_kernel" in ev.key:
+                passes[f"{key}_ms"] += us / 1e3 / 3
+    return passes
+
+
+@torch.inference_mode()
+def gmm_nan_check(dev) -> dict:
+    """A NaN made on the card (0/0, the canonical NaN) in lhs and in the
+    output gradient, in a segment on the tensor-core path and in one on the
+    exact short-sum path, reaches the same outputs of the three products as
+    in their plain versions."""
+    sizes = torch.tensor([3000, 5, 0, 1200], dtype=torch.int32, device=dev)
+    lhs, rhs, g = gmm_problem(sizes, 128, 64, torch.float32, 70, dev)
+    nan = torch.zeros((), device=dev) / torch.zeros((), device=dev)
+    lhs[10, 3], lhs[3002, 70], g[500, 9], g[3001, 40] = nan, nan, nan, nan
+    pairs = {"gmm": (gmm_kernel.gmm(lhs, rhs, sizes), gmm_kernel.gmm_plain(lhs, rhs, sizes)),
+             "gmm_transposed": (gmm_kernel.gmm(g, rhs, sizes, transpose_rhs=True),
+                                gmm_kernel.gmm_plain(g, rhs, sizes, True)),
+             "tgmm": (gmm_kernel.tgmm(lhs, g, sizes), gmm_kernel.tgmm_plain(lhs, g, sizes))}
+    torch.cuda.synchronize()
+    return {name: {"nan_outputs": int(torch.isnan(ref).sum()),
+                   "same_nan_positions": bool(torch.isnan(ref).any())
+                   and bool(torch.equal(torch.isnan(got), torch.isnan(ref)))}
+            for name, (got, ref) in pairs.items()}
 
 
 def check_gmm(rec: dict, what: str) -> None:
@@ -1811,40 +1894,56 @@ def check_gmm(rec: dict, what: str) -> None:
 
 def phase_gmm_kernel(dev) -> dict:
     """The three products at the six level shapes of the B=16 training step
-    (float32, routed sizes), then one bf16 shape and the edge cases."""
+    (float32, routed sizes), then one bf16 shape, one mixed bf16 × float32
+    shape and the edge cases: an empty group, all rows in one group, a row
+    count that is no multiple of the tile, tgmm segments at the edge of the
+    exact short-sum path (1, 3, 15, 16, 17 rows), K and N below it, and NaN
+    inputs."""
     torch.backends.cuda.matmul.allow_tf32 = False
     shapes = []
     for lvl, (t, d) in enumerate(zip(GMM_LEVEL_TOKENS, MOE_WIDTHS)):
         sizes = routed_sizes(t, seed=40 + lvl, dev=dev)
-        shapes += [(f"level{lvl}_w1", sizes, d, 2 * d, torch.float32),
-                   (f"level{lvl}_w2", sizes, 2 * d, d, torch.float32)]
+        shapes += [(f"level{lvl}_w1", sizes, d, 2 * d, torch.float32, None),
+                   (f"level{lvl}_w2", sizes, 2 * d, d, torch.float32, None)]
+    i32 = functools.partial(torch.tensor, dtype=torch.int32, device=dev)
+    short = gmm_kernel.SHORT_REDUCTION
     edges = [
-        ("level1_w1_bf16", routed_sizes(GMM_LEVEL_TOKENS[1], 41, dev), 256, 512, torch.bfloat16),
-        ("zero_group", torch.tensor([5000, 0, 3000, 1234], dtype=torch.int32, device=dev), 128,
-         256, torch.float32),
-        ("collapse", torch.tensor([0, 0, 8192, 0], dtype=torch.int32, device=dev), 128, 256,
-         torch.float32),
-        ("ragged_rows", torch.tensor([1000, 37, 500, 4], dtype=torch.int32, device=dev), 256, 128,
-         torch.float32),
+        ("level1_w1_bf16", routed_sizes(GMM_LEVEL_TOKENS[1], 41, dev), 256, 512, torch.bfloat16,
+         None),
+        ("level1_w1_mixed", routed_sizes(GMM_LEVEL_TOKENS[1], 41, dev), 256, 512,
+         torch.bfloat16, torch.float32),
+        ("zero_group", i32([5000, 0, 3000, 1234]), 128, 256, torch.float32, None),
+        ("collapse", i32([0, 0, 8192, 0]), 128, 256, torch.float32, None),
+        ("ragged_rows", i32([1000, 37, 500, 4]), 256, 128, torch.float32, None),
+        ("short_segments", i32([1, 3, short - 1, short, short + 1, 2000]), 256, 128,
+         torch.float32, None),
+        ("short_k_and_n", i32([700, 0, 300, 24]), short - 4, short - 8, torch.float32, None),
     ]
     report = {}
-    for seed, (name, sizes, k, n, dtype) in enumerate(shapes + edges):
-        lhs, rhs, g = gmm_problem(sizes, k, n, dtype, 50 + seed, dev)
+    for seed, (name, sizes, k, n, dtype, rhs_dtype) in enumerate(shapes + edges):
+        lhs, rhs, g = gmm_problem(sizes, k, n, dtype, 50 + seed, dev, rhs_dtype)
         rec = {"M": int(lhs.shape[0]), "K": k, "N": n, "E": int(sizes.shape[0]),
                "sizes": sizes.tolist(), "dtype": str(dtype).replace("torch.", ""),
-               **gmm_compare(lhs, rhs, sizes, g)}
+               "rhs_dtype": str(rhs.dtype).replace("torch.", ""),
+               **gmm_compare(lhs, rhs, sizes, g, repeat=name.startswith("level0"))}
         if name.startswith("level") and dtype == torch.float32:
             for kname, t in gmm_times(lhs, rhs, sizes, g).items():
                 rec[kname].update(t)
+            rec["tgmm"]["passes"] = tgmm_passes(lhs, g, sizes)
         report[name] = rec
         del lhs, rhs, g
         torch.cuda.empty_cache()
+    nan = gmm_nan_check(dev)
     emit({"phase": "gmm_kernel",
           "tolerance": "each element within 2·n·u·Σ|aᵢbᵢ|, u = 2^-24, n = K (gmm), N "
                        "(transposed), the segment length (tgmm); TF32 off",
-          "cases": report, **tf32_state()})
+          "short_reduction": short, "cases": report, "nan": nan, **tf32_state()})
+    for name, rec in nan.items():
+        check(rec["same_nan_positions"], f"gmm nan: {name} NaN outputs as in the plain version")
     for name, rec in report.items():
         check_gmm(rec, f"gmm {name}")
+        if "bitwise_repeatable" in rec["tgmm"]:
+            check(rec["tgmm"]["bitwise_repeatable"], f"gmm {name}: two tgmm launches equal")
     return report
 
 
@@ -1865,13 +1964,16 @@ def gmm_kernel_entries(report: dict, launches: dict) -> list:
             "name": name, "route": "cuda", "source": "multimodal_moe_torch/csrc/gmm.cu",
             "replaces": rep, "launches": launches[name],
             "max_abs_err": max(r[name]["max_abs_err"] for r in report.values()),
+            "max_err_over_bound": max(r[name]["err_over_bound"] for r in report.values()),
             "ms": total("kernel_ms"), "kernel_ms": total("kernel_ms"),
             "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": "operations" if ops_ms >= total("bound_ms") / 2 else "bytes",
+            "bound_share": total("bound_ms") / total("kernel_ms"),
             "library_ms": total("library_ms"),
             "per_launch": [{"M": r["M"], "K": r["K"], "N": r["N"],
                             **{k: r[name][k] for k in ("kernel_ms", "plain_ms", "library_ms",
-                                                        "bound_ms", "kernel_tflops")}}
+                                                        "bound_ms", "bound_by", "bound_share",
+                                                        "kernel_tflops")}}
                            for r in levels],
         })
     return entries

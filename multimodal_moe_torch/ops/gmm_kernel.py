@@ -35,9 +35,15 @@ tgmm_launches = 0
 
 MAX_GROUPS = 1024  # the kernels keep the group offsets in shared memory
 _TILE = 128        # output tile edge of both kernels
+_STAGE = 32        # reduction elements a stage of the kernels' tile loop
+# Sums shorter than this run the kernels' exact SIMT float32 path instead of
+# the split-TF32 tensor-core product (csrc/gmm.cu: kShortReduction): gmm's K,
+# tgmm's whole segment length. The split leaves ~3·2⁻²²·Σ|ab| per element,
+# inside 2·n·u·Σ|ab| (u = 2⁻²⁴) from n = 12 on.
+SHORT_REDUCTION = 16
 # tgmm: enough (group, chunk) work items times output tiles to give every
-# SM of the card a few blocks.
-_BLOCKS_PER_SM = 4
+# SM of the card a few blocks (8: tools/tgmm_chunk_sweep.py).
+_BLOCKS_PER_SM = 8
 
 
 def gmm_plain(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
@@ -149,12 +155,12 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
 
 def tgmm_rows_per_chunk(m: int, k: int, n: int, num_sms: int) -> int:
     """Rows a tgmm work item sums: the segments are cut so that work items
-    × output tiles give each SM ``_BLOCKS_PER_SM`` blocks, in steps of 8
-    rows (the kernel's reduction step)."""
+    × output tiles give each SM ``_BLOCKS_PER_SM`` blocks, in steps of 32
+    rows (a stage of the kernel's tile loop)."""
     tiles = -(-k // _TILE) * -(-n // _TILE)
     chunks = max(1, -(-_BLOCKS_PER_SM * num_sms // tiles))
     rows = -(-m // chunks)
-    return max(8, -(-rows // 8) * 8)
+    return max(_STAGE, -(-rows // _STAGE) * _STAGE)
 
 
 def tgmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,10 @@
 ``tests/test_torch_moe.py::test_moe_ffn_matches_jax``. The kernels run only
 on the card: the ``cuda`` tests hold them against the plain versions with
 the per-element bound 2·n·u·Σ|aᵢbᵢ| (u = 2⁻²⁴, n the length of each sum:
-two summation orders) and skip here.
+two summation orders; float32, bf16 and mixed inputs, tgmm segments around
+the exact short-sum path), check that two tgmm launches are bitwise equal,
+and skip here. ``tests/test_torch_gmm_split.py`` emulates the kernels'
+split-TF32 arithmetic on the CPU.
 """
 
 import jax
@@ -115,6 +118,16 @@ def test_wrapper_rejects_bad_inputs():
         gk.gmm(lhs.half(), rhs, sizes)
     with pytest.raises(ValueError, match="differ in rows"):
         gk.tgmm(lhs, torch.zeros(7, 4), sizes)
+
+
+@pytest.mark.parametrize("m,k,n", [(439296, 128, 256), (27456, 512, 1024), (40, 64, 64)])
+def test_tgmm_chunks_are_whole_stages(m, k, n):
+    """tgmm's chunks hold whole 32-row stages of the tile loop, and enough
+    of them that work items × output tiles give each SM its blocks."""
+    tiles = -(-k // 128) * -(-n // 128)
+    rows = gk.tgmm_rows_per_chunk(m, k, n, num_sms=132)
+    assert rows % 32 == 0 and rows >= 32
+    assert -(-m // rows) * tiles >= min(gk._BLOCKS_PER_SM * 132, -(-m // 32) * tiles) * 0.9
 
 
 # --------------------------------------------------------------------------
@@ -215,10 +228,13 @@ def _bound(a, b, n) -> torch.Tensor:
 
 
 def _card_problem(dev, sizes, k, n, dtype, seed):
+    """lhs in ``dtype`` (or ``dtype[0]``), rhs in ``dtype`` (or ``dtype[1]``),
+    the output gradient float32."""
+    lhs_dtype, rhs_dtype = dtype if isinstance(dtype, tuple) else (dtype, dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
     m = sum(sizes)
-    lhs = torch.randn(m, k, generator=gen, device=dev).to(dtype)
-    rhs = (torch.randn(len(sizes), k, n, generator=gen, device=dev) * k ** -0.5).to(dtype)
+    lhs = torch.randn(m, k, generator=gen, device=dev).to(lhs_dtype)
+    rhs = (torch.randn(len(sizes), k, n, generator=gen, device=dev) * k ** -0.5).to(rhs_dtype)
     g = torch.randn(m, n, generator=gen, device=dev)
     return lhs, rhs, torch.tensor(sizes, dtype=torch.int32, device=dev), g
 
@@ -227,6 +243,9 @@ CARD_CASES = {
     "level0_f32": ([100000, 37, 0, 9999], 128, 256, torch.float32),
     "ragged_bf16": ([1000, 0, 513, 77], 256, 128, torch.bfloat16),
     "one_group": ([0, 4097, 0, 0], 64, 64, torch.float32),
+    "mixed_bf16_f32": ([2000, 0, 513, 77], 256, 128, (torch.bfloat16, torch.float32)),
+    # tgmm segments around the exact short-sum path (gmm_kernel.SHORT_REDUCTION = 16)
+    "short_segments": ([1, 15, 16, 17, 3000], 128, 64, torch.float32),
 }
 
 
@@ -279,3 +298,37 @@ def test_cuda_autograd_matches_plain_autograd():
     for got, ref in zip(*grads):
         rel = float((got - ref).norm() / ref.norm())
         assert rel <= 1e-5, rel
+
+
+@pytest.mark.cuda
+def test_cuda_tgmm_is_deterministic():
+    """The partials are summed in chunk order (no atomics): two launches on
+    the same inputs are bitwise equal."""
+    dev = require_cuda()
+    lhs, _, gs, g = _card_problem(dev, [100000, 37, 0, 9999], 128, 256, torch.float32, seed=12)
+    first = gk.tgmm(lhs, g, gs)
+    assert torch.equal(first, gk.tgmm(lhs, g, gs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "mixed"])
+def test_cuda_kernels_propagate_nan(dtype):
+    """A NaN made on the card (0/0, the canonical NaN) in lhs and in the
+    output gradient, in a long segment (tensor-core path) and a short one
+    (exact path), reaches the same outputs as in the plain versions."""
+    dev = require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sizes = [3000, 5, 0, 1200]
+    lhs, rhs, gs, g = _card_problem(dev, sizes, 128, 64, torch.float32, seed=13)
+    nan = torch.zeros((), device=dev) / torch.zeros((), device=dev)
+    lhs[10, 3], lhs[3002, 70] = nan, nan
+    g[500, 9], g[3001, 40] = nan, nan
+    if dtype == "mixed":
+        lhs = lhs.bfloat16()
+    pairs = [(gk.gmm(lhs, rhs, gs), gk.gmm_plain(lhs, rhs, gs)),
+             (gk.gmm(g, rhs, gs, transpose_rhs=True), gk.gmm_plain(g, rhs, gs, True)),
+             (gk.tgmm(lhs, g, gs), gk.tgmm_plain(lhs, g, gs))]
+    torch.cuda.synchronize()
+    for got, ref in pairs:
+        assert bool(torch.isnan(ref).any())
+        assert torch.equal(torch.isnan(got), torch.isnan(ref))
