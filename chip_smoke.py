@@ -54,12 +54,18 @@ Phases (each prints one JSON line):
                card: bf16 at the three MoE-YOLO-s level shapes of the B=128
                headline (E=4; d=128/256/512, h=2d; C from the code's own
                capacity rule, rounded up to 256), fp32 at the shape of
-               tests/test_moe_kernels.py, and experts 0, 1 and 3 zeroed (only
-               expert 2's rows may be non-zero). Tolerances: fp32
+               tests/test_moe_kernels.py, experts 0, 1 and 3 zeroed (only
+               expert 2's rows may be non-zero), the widest MoE-YOLO width
+               (d=576, h=1152: a partial column block) and h off the
+               64-wide hidden chunks (d=192, h=80). Tolerances: fp32
                |d| <= 1e-4*max(1, max|ref|); bf16 one bf16 ulp of the hidden
                tile carried through |W2| plus one ulp of the output
                (``moe_kernels.ffn_tolerance``). Kernel, plain and library
-               (two cuBLAS baddbmm with SiLU between) times and the bound.
+               (two cuBLAS baddbmm with SiLU between) times, the bound, the
+               bound share and whether the kernel beat the library call
+               (printed, not checked); the kernel's branch-free SiLU against
+               its exact division over every float32 input it takes
+               (``moe_ffn_silu_check``: no bit may differ).
 9. moe_yolo_fp32 -- MoE-YOLO-s (E=4, k=2, cf=1.25, ``arch="tpu"``, random
                weights from seed 0, context bias randomised), fp32 with TF32
                off, B=2 at 704x1248, seeded context ids, card against CPU in
@@ -155,9 +161,11 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import functools
 import json
 import re
+import struct
 import subprocess
 import sys
 import time
@@ -1415,16 +1423,42 @@ def ffn_times(args, capacity) -> dict:
     bound_ms, bound_by = ffn_bound(e, capacity, d, h, buf.dtype)
     kernel_ms = cuda_ms(lambda: moe_kernels.moe_ffn_fwd(*args, capacity), reps=10, warmup=2)
     flops = 4 * e * capacity * d * h
+    library_ms = cuda_ms(lambda: library_ffn(*args, capacity), reps=10, warmup=2)
+    # kernel_below_library is printed for the reader, not checked: times are noisy.
     return {"kernel_ms": kernel_ms,
             "plain_ms": cuda_ms(lambda: moe_kernels._ffn_plain(*args, capacity), reps=3, warmup=1),
-            "library_ms": cuda_ms(lambda: library_ffn(*args, capacity), reps=10, warmup=2),
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / kernel_ms, "library_over_kernel": library_ms / kernel_ms,
+            "kernel_below_library": kernel_ms < library_ms,
             "kernel_tflops": flops / kernel_ms / 1e9, "flops": flops}
 
 
 def check_ffn(rec: dict, what: str) -> None:
     check(rec["finite"], f"{what}: finite kernel output")
     check(rec["within_tolerance"], f"{what}: kernel vs plain within tolerance")
+
+
+def _f32_bits(x: float) -> int:
+    return struct.unpack("<I", struct.pack("<f", x))[0]
+
+
+# float32 inputs in silu_fast's range (csrc/moe_ffn_fwd.cu, silu_fast_ok):
+# +0, 2^-60 <= v <= FLT_MAX, -80 <= v <= -2^-60.
+SILU_FAST_INPUTS = (1 + _f32_bits(3.4028234663852886e38) - _f32_bits(2.0 ** -60) + 1
+                    + _f32_bits(-80.0) - _f32_bits(-(2.0 ** -60)) + 1)
+
+
+def silu_check(dev) -> dict:
+    """The kernel's branch-free SiLU against its exact division over every
+    float32 input in the branch-free range (``moe_ffn_silu_check``)."""
+    lib = moe_kernels._lib()
+    lib.moe_ffn_silu_check.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.moe_ffn_silu_check.restype = ctypes.c_int
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    err = lib.moe_ffn_silu_check(counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    check(err == 0, f"moe_ffn_silu_check launch: cudaError_t {err}")
+    torch.cuda.synchronize()
+    return {"mismatches": int(counts[0]), "inputs_checked": int(counts[1])}
 
 
 def phase_moe_ffn(dev) -> dict:
@@ -1434,6 +1468,10 @@ def phase_moe_ffn(dev) -> dict:
         cases[f"level{lvl}"] = (torch.bfloat16, MOE_E, c, d, 2 * d, None)
     cases["test_shape_f32"] = (torch.float32, 4, 512, 64, 128, 0.05)
     cases["experts_0_1_3_zeroed"] = (torch.bfloat16, 4, 512, 128, 256, None)
+    # The widest MoE-YOLO width (a 64-column block of three), and h off the
+    # 64-wide hidden chunks.
+    cases["widest_576"] = (torch.bfloat16, 2, 256, 576, 1152, None)
+    cases["bf16_partial_tiles"] = (torch.bfloat16, 3, 256, 192, 80, None)
     report = {}
     for seed, (name, (dtype, e, c, d, h, scale)) in enumerate(cases.items()):
         args = ffn_problem(e, c, d, h, dtype, seed, dev, weight_scale=scale)
@@ -1452,7 +1490,10 @@ def phase_moe_ffn(dev) -> dict:
         report[name] = rec
         del args
         torch.cuda.empty_cache()
-    emit({"phase": "moe_ffn_fwd", "cases": report})
+    silu = silu_check(dev)
+    emit({"phase": "moe_ffn_fwd", "cases": report, "silu_check": silu})
+    check(silu["inputs_checked"] == SILU_FAST_INPUTS and silu["mismatches"] == 0,
+          f"branch-free SiLU differs from the exact division: {silu}")
     for name, rec in report.items():
         check_ffn(rec, f"moe_ffn_fwd {name}")
     zeroed = report["experts_0_1_3_zeroed"]
@@ -1691,8 +1732,12 @@ def moe_kernel_entry(per_level, launches, errs) -> dict:
         "bound_ms": total("bound_ms"),
         "bound_by": "operations" if ops_ms >= total("bound_ms") / 2 else "bytes",
         "library_ms": total("library_ms"),
+        "bound_share": total("bound_ms") / total("kernel_ms"),
+        "library_over_kernel": total("library_ms") / total("kernel_ms"),
         "per_level": [{k: lv[k] for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
-                                          "bound_by", "max_abs_err")} for lv in per_level],
+                                          "bound_by", "bound_share", "library_over_kernel",
+                                          "kernel_below_library", "max_abs_err",
+                                          "max_err_over_tolerance")} for lv in per_level],
     }
 
 

@@ -26,12 +26,14 @@ moe_ffn_fwd_launches = 0
 # fits a Hopper block up to this width; the wrapper refuses wider on every
 # device, so that both versions accept the same inputs.
 MAX_SMEM_BYTES = 232448
-_BM, _HC, _PAD = 64, 64, 8
+# The kernel's kBM (token rows a block), kT (ring tile edge, hidden columns a
+# chunk), kPadH (row pad) and kStages (ring depth).
+_BM, _T, _PAD, _STAGES = 128, 64, 8, 4
 
 
 def bf16_smem_bytes(d: int) -> int:
-    bn = 128 if d <= 128 else 256  # output columns a block
-    return 2 * (_BM * (d + _PAD) + d * (_HC + _PAD) + _HC * (bn + _PAD) + _BM * (_HC + _PAD))
+    """x tile, hidden chunk and the ring of weight tiles, in bf16."""
+    return 2 * (_BM * (d + _PAD) + _BM * (_T + _PAD) + _STAGES * _T * (_T + _PAD))
 
 
 def round_up_capacity(capacity: int) -> int:

@@ -10,6 +10,9 @@ W2, plus one ulp of the output). Gradients of ``fused_expert_ffn``: atol
 version exactly; the kernel itself runs only on the card (``-m cuda``).
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -128,12 +131,32 @@ def test_wrapper_rejects_bad_inputs():
         tk.moe_ffn_fwd(buf, w1.transpose(1, 2).contiguous().transpose(1, 2), b1, w2, b2, C)
 
 
+VARIANT_WIDTHS = (64, 128, 192, 256, 384, 512, 576)  # MoE-YOLO n/s/m/l neck widths
+
+
 def test_shared_memory_budget():
     # MoE-YOLO widths of all four variants fit a Hopper block (227 KB).
-    for d in (64, 128, 192, 256, 384, 512, 576):
+    for d in VARIANT_WIDTHS:
         assert tk.bf16_smem_bytes(d) <= tk.MAX_SMEM_BYTES
-    assert tk.bf16_smem_bytes(512) == 183296
+    assert tk.bf16_smem_bytes(512) == 188416
     assert tk.bf16_smem_bytes(704) > tk.MAX_SMEM_BYTES
+
+
+def _kernel_source() -> str:
+    return (Path(tk.__file__).resolve().parents[1] / "csrc" / "moe_ffn_fwd.cu").read_text()
+
+
+@pytest.mark.parametrize("d", VARIANT_WIDTHS)
+def test_shared_memory_formula_is_the_kernel_source(d):
+    """``bf16_smem_bytes`` mirrors the kernel's: its tile constants, and the
+    expression of the source's own ``bf16_smem_bytes`` evaluated here."""
+    src = _kernel_source()
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert (consts["kBM"], consts["kT"], consts["kPadH"], consts["kStages"]) == \
+        (tk._BM, tk._T, tk._PAD, tk._STAGES)
+    body = re.search(r"size_t bf16_smem_bytes\(int d\) \{\s*return (.*?);\s*\}", src, re.S)
+    expr = body.group(1).replace("(size_t)", "")
+    assert eval(expr, {"__builtins__": {}}, {**consts, "d": d}) == tk.bf16_smem_bytes(d)
 
 
 # --------------------------------------------------------------------------
@@ -147,6 +170,10 @@ CUDA_CASES = {
     "bf16_level1": (torch.bfloat16, 4, 256, 256, 512),
     "bf16_level2": (torch.bfloat16, 4, 256, 512, 1024),
     "bf16_partial_tiles": (torch.bfloat16, 3, 256, 192, 80),   # d % 128, h % 64 != 0
+    "bf16_widest_576": (torch.bfloat16, 2, 256, 576, 1152),    # a 64-column block of 3
+    "bf16_d64": (torch.bfloat16, 4, 512, 64, 128),             # one W1 tile a chunk
+    "bf16_one_expert": (torch.bfloat16, 1, 256, 256, 512),     # one capacity tile, 2 blocks
+    "bf16_d80_h48": (torch.bfloat16, 2, 256, 80, 48),          # partial k, chunk and W2 tiles
 }
 
 
@@ -157,7 +184,8 @@ def test_cuda_kernel_matches_plain(case):
     dtype, e, c, d, h = CUDA_CASES[case]
     buf, w1, b1, w2, b2 = (t.to(dev) for t in _torch(_inputs(7, e, c, d, h), dtype))
     buf[c - 40 : c] = 0          # rows no token filled: silu(b1)·W2 + b2
-    w1[e - 1] = 0                # an expert that maps everything to its biases
+    if e > 1:
+        w1[e - 1] = 0            # an expert that maps everything to its biases
     before = tk.moe_ffn_fwd_launches
     got = tk.moe_ffn_fwd(buf, w1, b1, w2, b2, c)
     torch.cuda.synchronize()
