@@ -27,11 +27,15 @@ Phases (each prints one JSON line):
                kernel taken over this run alone.
 5. ms_deform_fwd -- the deformable-attention kernel against its plain
                version, and the grid_sample formulation against the plain
-               version, at three shapes: the RT-DETR headline (B=16, levels
+               version, at the RT-DETR headline (B=16, levels
                88x156/44x78/22x39, NH=8, D=32, L=3, P=4, Q=300, locations in
                [-0.3, 1.3]), the shape of tests/test_deformable_pallas.py
-               (D=8 < 32), and locations exactly on pixel centres and on the
-               borders 0 and 1. Tolerance: max |d| <= 1e-5 * max(1, max|values|).
+               (D=8 < 32), locations exactly on pixel centres and on the
+               borders 0 and 1, NaN / +inf / -inf / 1e30 locations (the
+               kernel only: element for element, the pattern of finite
+               values equal), and D=6 (the 4-byte path) and D=8 (a narrow
+               16-byte path) at the headline's levels. Tolerance: max |d| <=
+               1e-5 * max(1, max|values|).
 6. rtdetr_fp32 -- RT-DETR r50vd (hidden 256, 300 queries, 6 decoder layers,
                ``arch="tpu"``, random weights from seed 0), fp32 with TF32 off,
                B=1 at 704x1248, card against CPU (plain deformable version):
@@ -87,17 +91,23 @@ Phases (each prints one JSON line):
                dropped-token share and expert load per level; then the kernel
                on the step's own three level buffers against its plain
                version, with times and bounds.
-11. ms_deform_bwd -- the deformable-attention backward kernel against its
-               plain version (dv, the per-corner sums s, and d_loc / d_attn
-               through the shared elementwise part) at the training shape
-               (B=16, Q=684, levels 88x156/44x78/22x39, NH=8, D=32, L=3, P=4,
-               locations in [-0.3, 1.3]), the shape of
+11. ms_deform_bwd -- the deformable-attention backward kernel, one launch
+               for dv, d_loc and d_attn, against its plain version (the
+               plain backward and its elementwise part) at the training
+               shape (B=16, Q=684, levels 88x156/44x78/22x39, NH=8, D=32,
+               L=3, P=4, locations in [-0.3, 1.3]), the shape of
                tests/test_deformable_pallas.py (D=8), pixel centres and the
-               borders 0/1, and a contention case (every sample of a
-               (batch, head) on one location). Tolerances: dv and s within
-               2·n·u of the sum of the n absolute terms that make each
-               element (u = 2^-24: two summation orders), d_loc and d_attn
-               within 1e-5·max(1, max|ref|).
+               borders 0/1, a contention case (every sample of a (batch,
+               head) on one location), NaN / +inf / -inf / 1e30 locations,
+               D=6 and D=8. Tolerances: each element of dv, d_loc and d_attn
+               within 2·n·u of the sum of the n absolute terms that make it
+               (u = 2^-24: two summation orders;
+               deformable_kernel.deform_bwd_tolerance), d_loc and d_attn also
+               within 1e-5·max(1, max|ref|); the pattern of finite values
+               equal. The whole backward's time (the dv zero fill included)
+               and the zero fill's alone, the bound of the fused function
+               beside the unfused one's (s written in place of d_loc and
+               d_attn).
 12. rtdetr_train_fp32 -- one DetectionTrainer.train_step of RT-DETR r50vd
                (scripts/train_rtdetr.py's model and optimizer, random
                weights from seed 0) at B=1, 704x1248, 96 ground-truth
@@ -114,9 +124,11 @@ Phases (each prints one JSON line):
                TF32 on: step ms, img/s, peak memory, the step's split
                (forward / loss with the host matcher's own time / backward /
                optimizer + EMA, CUDA events), 6 + 6 launches per step; B5 on
-               the step's own inputs against its plain version, with times
-               and bounds; then a learning check (one fixed batch, B=4, no
-               augmentation, warmup of 1 step: the loss falls over 20 steps).
+               the step's own inputs (the last decoder layer's backward) and
+               B4 on its own forward inputs (decoder layer 0, Q=684) against
+               their plain versions, with times and bounds; then a learning
+               check (one fixed batch, B=4, no augmentation, warmup of 1
+               step: the loss falls over 20 steps).
 14. gmm_kernel -- the grouped GEMM (csrc/gmm.cu) against its plain versions:
                gmm, the transposed gmm (the lhs gradient) and tgmm (the rhs
                gradient) at the six level shapes of the MoE-YOLO-s B=16
@@ -201,7 +213,6 @@ from multimodal_moe_torch.ops import (  # noqa: E402
 from multimodal_moe_torch.ops.assignment import assignment_margin  # noqa: E402
 from multimodal_moe_torch.ops.augment import augment_draws  # noqa: E402
 from multimodal_moe_torch.ops.deformable import (  # noqa: E402
-    _corners,
     level_shapes_to_offsets,
     ms_deform_attn_bwd_plain,
     ms_deform_attn_loc_attn_grads,
@@ -587,44 +598,61 @@ def grid_sample_deform(values, level_shapes, loc, attn):
     return out.permute(0, 3, 1, 2).reshape(b, q, nh * d)
 
 
+NON_FINITE = (float("nan"), float("inf"), float("-inf"), 1e30)
+
+
 def deform_problem(levels, b, nh, d, p, q, seed, dev, mode="uniform"):
     """Seeded values and softmaxed weights; locations uniform in
-    [-0.3, 1.3] (out of bounds on every side), or on pixel centres and the
-    borders 0 and 1 (``mode="grid"``)."""
+    [-0.3, 1.3] (out of bounds on every side), on pixel centres and the
+    borders 0 and 1 (``mode="grid"``), or uniform with NaN, +inf, -inf and
+    1e30 in one coordinate or both of every 7th, 11th and 13th point
+    (``mode="non_finite"``)."""
     rng = np.random.default_rng(seed)
     total = sum(h * w for h, w in levels)
     values = rng.normal(0.0, 1.0, (b, total, nh, d)).astype(np.float32)
     shape = (b, q, nh, len(levels), p)
-    if mode == "uniform":
+    if mode in ("uniform", "non_finite"):
         loc = rng.uniform(-0.3, 1.3, shape + (2,))
     else:
         hw = np.asarray(levels, np.float64)[None, None, None, :, None, ::-1]  # (W, H)
         loc = (np.floor(rng.uniform(0, 1, shape + (2,)) * hw) + 0.5) / hw
         pick = rng.integers(0, 4, shape + (2,))
         loc = np.where(pick == 1, 0.0, np.where(pick == 2, 1.0, loc))
+    if mode == "non_finite":
+        flat = loc.reshape(-1, 2)
+        for i, bad in enumerate(NON_FINITE):
+            flat[i::7 * len(NON_FINITE), 0] = bad
+            flat[i::11 * len(NON_FINITE), 1] = bad
+            flat[i::13 * len(NON_FINITE), :] = bad
     logits = rng.normal(0.0, 1.0, (b, q, nh, len(levels) * p))
     attn = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)  # noqa: E731
     return t(values), t(loc), t(attn.reshape(shape))
 
 
-def deform_compare(values, levels, loc, attn) -> dict:
-    """Kernel and grid_sample against the plain version on the same inputs;
-    the numbers are emitted before any check can raise."""
+def deform_compare(values, levels, loc, attn, library: bool = True) -> dict:
+    """Kernel (and grid_sample, unless ``library`` is False: it has its own
+    semantics at non-finite locations) against the plain version on the
+    same inputs, element for element, with the pattern of finite values
+    equal; the numbers are emitted before any check can raise."""
     got = deformable_kernel.ms_deform_attn_fwd(values, levels, loc, attn)
     ref = ms_deformable_attention(values, levels, loc, attn)
-    lib = grid_sample_deform(values, levels, loc, attn)
+    rec = {"tolerance": deform_tol(values),
+           "max_abs_err": float((got - ref).abs().max()),
+           "finite": bool(torch.isfinite(got).all()),
+           "finite_pattern_equal": torch.equal(torch.isfinite(got), torch.isfinite(ref))}
+    if library:
+        lib = grid_sample_deform(values, levels, loc, attn)
+        rec["grid_sample_max_abs_err"] = float((lib - ref).abs().max())
     torch.cuda.synchronize()
-    return {"tolerance": deform_tol(values),
-            "max_abs_err": float((got - ref).abs().max()),
-            "grid_sample_max_abs_err": float((lib - ref).abs().max()),
-            "finite": bool(torch.isfinite(got).all())}
+    return rec
 
 
 def check_deform(rec: dict, what: str) -> None:
-    check(rec["finite"], f"{what}: finite kernel output")
+    check(rec["finite"] and rec["finite_pattern_equal"], f"{what}: finite kernel output")
     check(rec["max_abs_err"] <= rec["tolerance"], f"{what}: kernel vs plain")
-    check(rec["grid_sample_max_abs_err"] <= rec["tolerance"], f"{what}: grid_sample vs plain")
+    if "grid_sample_max_abs_err" in rec:
+        check(rec["grid_sample_max_abs_err"] <= rec["tolerance"], f"{what}: grid_sample vs plain")
 
 
 def deform_times(values, levels, loc, attn) -> dict:
@@ -646,12 +674,15 @@ def phase_deform_kernel(dev) -> dict:
         "headline": (RT_LEVELS, RT_B, RT_NH, RT_D, RT_P, RT_QUERIES, "uniform"),
         "test_shape": (((8, 12), (4, 6), (2, 3)), 2, 2, 8, 4, 7, "uniform"),
         "centres_and_borders": (RT_LEVELS, 2, RT_NH, RT_D, RT_P, RT_QUERIES, "grid"),
+        "non_finite": (RT_LEVELS, 2, RT_NH, RT_D, RT_P, RT_QUERIES, "non_finite"),
+        "d6_scalar": (RT_LEVELS, 2, RT_NH, 6, RT_P, RT_QUERIES, "uniform"),
+        "d8_vector": (RT_LEVELS, 2, RT_NH, 8, RT_P, RT_QUERIES, "uniform"),
     }
     report = {}
     for seed, (name, (levels, b, nh, d, p, q, mode)) in enumerate(cases.items()):
         values, loc, attn = deform_problem(levels, b, nh, d, p, q, seed, dev, mode)
         rec = {"levels": levels, "B": b, "NH": nh, "D": d, "P": p, "Q": q, "loc": mode,
-               **deform_compare(values, levels, loc, attn)}
+               **deform_compare(values, levels, loc, attn, library=mode != "non_finite")}
         if name == "headline":
             rec.update(deform_times(values, levels, loc, attn))
         report[name] = rec
@@ -889,93 +920,99 @@ RT_MAX_BOXES, RT_DN_GROUPS = 96, 2                          # scripts/train_rtde
 RT_TRAIN_Q = RT_QUERIES + 2 * RT_DN_GROUPS * RT_MAX_BOXES   # 684 decoder queries
 RT_STEPS_PER_EPOCH = 1000   # the schedule's length; the timed steps sit in the warmup
 U32 = 2.0 ** -24            # float32 unit roundoff
-
-
-def deform_bwd_tolerances(values, levels, loc, attn, g):
-    """Per-element bounds for two summation orders, 2·n·u·Σ|terms| with n
-    the number of terms: for dv, the corner contributions that land on each
-    value row (counted row by row); for s, the D products of each dot."""
-    b, total, nh, d = values.shape
-    dv_abs, _ = ms_deform_attn_bwd_plain(values, levels, loc, attn, g.abs())
-    _, s_abs = ms_deform_attn_bwd_plain(values.abs(), levels, loc, attn, g.abs())
-    counts = torch.zeros(b * total * nh, device=values.device)
-    batch = torch.arange(b, device=values.device).view(b, 1, 1, 1, 1)
-    head = torch.arange(nh, device=values.device).view(1, 1, nh, 1, 1)
-    for _, _, _, inside, flat_idx in _corners(levels, loc):
-        rows = ((batch * total + flat_idx) * nh + head)[inside]
-        counts.index_add_(0, rows, torch.ones(rows.shape, device=values.device))
-    return 2 * counts.view(b, total, nh, 1) * U32 * dv_abs, 2 * d * U32 * s_abs
+# Per point, B5's fused elementwise part (ms_deform_attn_loc_attn_grads): per
+# corner 2 products and a sum for d_attn, s·attn, 2 products and a sum for
+# dwx, 2 products and a sum for dwy; then the scales by W_l and H_l.
+DEFORM_BWD_EPILOGUE_FLOPS = 4 * 10 + 2
 
 
 def deform_bwd_compare(values, levels, loc, attn, g) -> dict:
-    """B5 (and the shared elementwise part) against the plain backward on
-    the same inputs; the numbers are returned before any check can raise."""
-    dv, s = deformable_kernel.ms_deform_attn_bwd(values, levels, loc, attn, g)
+    """B5's (dv, d_loc, d_attn) from one launch against the plain backward
+    and its elementwise part on the same inputs, per element under
+    ``deformable_kernel.deform_bwd_tolerance`` (2·n·u·Σ|terms|), d_loc and
+    d_attn also under 1e-5·max(1, max|ref|), and the pattern of finite
+    values equal; the numbers are returned before any check can raise."""
+    got = deformable_kernel.ms_deform_attn_bwd(values, levels, loc, attn, g)
     ref_dv, ref_s = ms_deform_attn_bwd_plain(values, levels, loc, attn, g)
-    grads = ms_deform_attn_loc_attn_grads(levels, loc, attn, s)
-    ref_grads = ms_deform_attn_loc_attn_grads(levels, loc, attn, ref_s)
-    dv_tol, s_tol = deform_bwd_tolerances(values, levels, loc, attn, g)
+    ref = (ref_dv, *ms_deform_attn_loc_attn_grads(levels, loc, attn, ref_s))
+    tols = deformable_kernel.deform_bwd_tolerance(values, levels, loc, attn, g)
     torch.cuda.synchronize()
-    rec = {"finite": bool(torch.isfinite(dv).all()) and bool(torch.isfinite(s).all()),
-           "tolerance": "dv, s: 2·n·u·Σ|terms| per element; d_loc, d_attn: 1e-5·max(1, max|ref|)"}
-    for name, got, ref, tol in (("dv", dv, ref_dv, dv_tol), ("s", s, ref_s, s_tol)):
-        d = (got - ref).abs()
+    rec = {"finite": all(bool(torch.isfinite(t).all()) for t in got),
+           "finite_pattern_equal": all(torch.equal(torch.isfinite(a), torch.isfinite(b))
+                                       for a, b in zip(got, ref)),
+           "tolerance": "dv, d_loc, d_attn: 2·n·u·Σ|terms| per element "
+                        "(deformable_kernel.deform_bwd_tolerance); d_loc, d_attn also "
+                        "1e-5·max(1, max|ref|)"}
+    for name, a, r, tol in zip(("dv", "d_loc", "d_attn"), got, ref, tols):
+        d = (a - r).abs()
         rec[f"{name}_max_abs_err"] = float(d.max())
         rec[f"{name}_err_over_tolerance"] = float(torch.where(d == 0, 0.0, d / tol).max())
         rec[f"{name}_within_tolerance"] = bool((d <= tol).all())
-    for name, got, ref in zip(("d_loc", "d_attn"), grads, ref_grads):
-        d = float((got - ref).abs().max())
-        rec[f"{name}_max_abs_err"] = d
-        rec[f"{name}_within_tolerance"] = d <= 1e-5 * max(1.0, float(ref.abs().max()))
-    rec["max_abs_err"] = max(rec["dv_max_abs_err"], rec["s_max_abs_err"])
+        if name != "dv":
+            rec[f"{name}_within_1e-5"] = float(d.max()) <= 1e-5 * max(1.0, float(r.abs().max()))
+    rec["max_abs_err"] = max(rec[f"{n}_max_abs_err"] for n in ("dv", "d_loc", "d_attn"))
     rec["dv_rows_written"] = int((ref_dv.abs().amax(-1) > 0).sum())
-    del dv, s, ref_dv, ref_s, dv_tol, s_tol
+    del got, ref, ref_dv, ref_s, tols
     return rec
 
 
 def check_deform_bwd(rec: dict, what: str) -> None:
-    check(rec["finite"], f"{what}: finite kernel outputs")
-    for name in ("dv", "s", "d_loc", "d_attn"):
+    check(rec["finite"] and rec["finite_pattern_equal"], f"{what}: finite kernel outputs")
+    for name in ("dv", "d_loc", "d_attn"):
         check(rec[f"{name}_within_tolerance"], f"{what}: {name} kernel vs plain")
+    for name in ("d_loc", "d_attn"):
+        check(rec[f"{name}_within_1e-5"], f"{what}: {name} kernel vs plain, 1e-5")
 
 
 def deform_bwd_bound(values, levels, loc, attn) -> dict:
-    """Least time for B5's function on these inputs: the value rows that
-    in-bounds corners sample, g, loc and attn read once, s and dv written
-    once (dv is the size of ``values``), over the memory rate; or each
-    in-bounds corner's dot and add (4·D flops) and each point's geometry
-    over the fp32 rate."""
+    """Least time for B5's fused function on these inputs: the value rows
+    that in-bounds corners sample, g, loc and attn read once, dv (the size
+    of ``values``), d_loc and d_attn (3 floats a point) written once, over
+    the memory rate; or each in-bounds corner's dot and add (4·D flops) and
+    each point's geometry and elementwise part over the fp32 rate. The
+    bound of the unfused function (``s``, 4 floats a point, written in place
+    of d_loc and d_attn, and no elementwise part) is printed beside it."""
     fwd = deform_bound(values, levels, loc, attn)   # rows, loc, attn, and g's size
-    nbytes = fwd["bytes"] + 4 * (attn.numel() * 4 + values.numel())
-    flops = fwd["corners_in_bounds"] * 4 * values.shape[3] + attn.numel() * DEFORM_POINT_FLOPS
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "dv_bytes": 4 * values.numel(), "flops": flops,
-            "value_rows_read": fwd["value_rows_read"], "corners_in_bounds": fwd["corners_in_bounds"]}
+    corner_flops = fwd["corners_in_bounds"] * 4 * values.shape[3]
+    out = {}
+    for key, per_point, point_flops in (("", 3, DEFORM_POINT_FLOPS + DEFORM_BWD_EPILOGUE_FLOPS),
+                                        ("with_s_", 4, DEFORM_POINT_FLOPS)):
+        nbytes = fwd["bytes"] + 4 * (attn.numel() * per_point + values.numel())
+        flops = corner_flops + attn.numel() * point_flops
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FP32_FLOPS * 1e3
+        out.update({f"{key}bound_ms": max(t_bytes, t_ops),
+                    f"{key}bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    f"{key}bytes": nbytes, f"{key}flops": flops})
+    return {**out, "dv_bytes": 4 * values.numel(), "value_rows_read": fwd["value_rows_read"],
+            "corners_in_bounds": fwd["corners_in_bounds"]}
 
 
 def deform_bwd_times(values, levels, loc, attn, g) -> dict:
+    """The whole backward (the ``dv`` zero fill and the one launch) against
+    its plain version and the library yardstick; the zero fill alone."""
     bound = deform_bwd_bound(values, levels, loc, attn)
     bwd = deformable_kernel.ms_deform_attn_bwd
     kernel_ms = cuda_ms(lambda: bwd(values, levels, loc, attn, g), reps=10, warmup=2)
-    _, s = bwd(values, levels, loc, attn, g)
-    elementwise_ms = cuda_ms(lambda: ms_deform_attn_loc_attn_grads(levels, loc, attn, s), reps=10)
-    plain_ms = cuda_ms(lambda: ms_deform_attn_bwd_plain(values, levels, loc, attn, g), reps=3,
-                       warmup=1)
+    memset_ms = cuda_ms(lambda: torch.zeros_like(values), reps=10)
+
+    def plain():
+        _, s = ms_deform_attn_bwd_plain(values, levels, loc, attn, g)
+        return ms_deform_attn_loc_attn_grads(levels, loc, attn, s)
+
+    plain_ms = cuda_ms(plain, reps=3, warmup=1)
     # The library yardstick: autograd's backward through the grid_sample
-    # formulation, which yields dv, d_loc and d_attn (B5 + the elementwise part).
+    # formulation, which yields the same dv, d_loc and d_attn.
     inputs = [t.detach().requires_grad_() for t in (values, loc, attn)]
     out = grid_sample_deform(inputs[0], levels, inputs[1], inputs[2])
     library_ms = cuda_ms(lambda: torch.autograd.grad(out, inputs, g, retain_graph=True), reps=5)
     lib_dv = torch.autograd.grad(out, inputs, g, retain_graph=True)[0]
     ref_dv, _ = ms_deform_attn_bwd_plain(values, levels, loc, attn, g)
     lib_err = float((lib_dv - ref_dv).abs().max())
-    del out, inputs, lib_dv, ref_dv, s
-    return {"kernel_ms": kernel_ms, "elementwise_ms": elementwise_ms,
-            "backward_ms": kernel_ms + elementwise_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "library_dv_max_abs_err": lib_err, **bound,
-            "achieved_gb_per_s": bound["bytes"] / kernel_ms / 1e6}
+    del out, inputs, lib_dv, ref_dv
+    return {"kernel_ms": kernel_ms, "backward_ms": kernel_ms, "memset_ms": memset_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "library_dv_max_abs_err": lib_err,
+            **bound, "achieved_gb_per_s": bound["bytes"] / kernel_ms / 1e6}
 
 
 def phase_deform_bwd(dev) -> dict:
@@ -984,11 +1021,14 @@ def phase_deform_bwd(dev) -> dict:
         "test_shape": (((8, 12), (4, 6), (2, 3)), 2, 2, 8, 4, 7, "uniform"),
         "centres_and_borders": (RT_LEVELS, 2, RT_NH, RT_D, RT_P, RT_TRAIN_Q, "grid"),
         "contention": (RT_LEVELS, 2, RT_NH, RT_D, RT_P, RT_TRAIN_Q, "one_location"),
+        "non_finite": (RT_LEVELS, 2, RT_NH, RT_D, RT_P, RT_TRAIN_Q, "non_finite"),
+        "d6_scalar": (RT_LEVELS, 2, RT_NH, 6, RT_P, RT_TRAIN_Q, "uniform"),
+        "d8_vector": (RT_LEVELS, 2, RT_NH, 8, RT_P, RT_TRAIN_Q, "uniform"),
     }
     report = {}
     for seed, (name, (levels, b, nh, d, p, q, mode)) in enumerate(cases.items()):
         values, loc, attn = deform_problem(levels, b, nh, d, p, q, 20 + seed, dev,
-                                           "grid" if mode == "grid" else "uniform")
+                                           "uniform" if mode == "one_location" else mode)
         if mode == "one_location":   # every sample of a (batch, head) on one spot
             loc = torch.tensor([0.37, 0.61], device=dev).expand_as(loc).contiguous()
         gen = torch.Generator(device=dev).manual_seed(30 + seed)
@@ -1284,7 +1324,18 @@ def recording_bwd(record: list):
     return patched(deformable_kernel, "ms_deform_attn_bwd", make)
 
 
-def phase_rtdetr_train(dev, smi: str) -> "tuple[dict, dict]":
+def recording_fwd(record: list):
+    """Keep the arguments of the first B4 call (decoder layer 0's forward)."""
+    def make(real):
+        def fwd(*args):
+            if not record:
+                record.append(args)
+            return real(*args)
+        return fwd
+    return patched(deformable_kernel, "_fwd", make)
+
+
+def phase_rtdetr_train(dev, smi: str) -> "tuple[dict, dict, dict]":
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = True
     trainer = rtdetr_trainer(dev, RT_B)
@@ -1292,10 +1343,10 @@ def phase_rtdetr_train(dev, smi: str) -> "tuple[dict, dict]":
     batch = rt_train_batch(RT_B, seed=11, dev=dev)
 
     # The main path: the counts from zero over one train step.
-    bwd_args = []
+    bwd_args, fwd_args = [], []
     deformable_kernel.ms_deform_fwd_launches = 0
     deformable_kernel.ms_deform_bwd_launches = 0
-    with recording_bwd(bwd_args):
+    with recording_bwd(bwd_args), recording_fwd(fwd_args):
         _, metrics = trainer.train_step(state, batch)
         torch.cuda.synchronize()
     launches = (deformable_kernel.ms_deform_fwd_launches, deformable_kernel.ms_deform_bwd_launches)
@@ -1321,7 +1372,14 @@ def phase_rtdetr_train(dev, smi: str) -> "tuple[dict, dict]":
             "launches": launches[1], **deform_bwd_compare(values, levels, loc, attn, g),
             **deform_bwd_times(values, levels, loc, attn, g)}
     rec["kernel_on_step_inputs"] = main
-    del bwd_args, values, loc, attn, g, state, trainer, batch
+    # B4 on the step's own forward inputs (decoder layer 0, Q=684).
+    v, levels, loc, attn = (a.detach() if torch.is_tensor(a) else a for a in fwd_args[0])
+    fwd_main = {"shape": {"B": RT_B, "sum_hw": v.shape[1], "NH": v.shape[2], "D": v.shape[3],
+                          "L": attn.shape[3], "P": attn.shape[4], "Q": attn.shape[1]},
+                "launches": launches[0], **deform_compare(v, levels, loc, attn),
+                **deform_times(v, levels, loc, attn)}
+    rec["fwd_kernel_on_step_inputs"] = fwd_main
+    del bwd_args, fwd_args, values, v, loc, attn, g, state, trainer, batch
     torch.cuda.empty_cache()
 
     # Learning check: one fixed batch, B=4, no augmentation, lr 0 then 1e-4.
@@ -1341,9 +1399,10 @@ def phase_rtdetr_train(dev, smi: str) -> "tuple[dict, dict]":
           f"training step launched ms_deform_fwd / ms_deform_bwd {launches} times, not 6 and 6")
     check(np.isfinite(first_loss) and np.isfinite(losses).all(), "finite training losses")
     check_deform_bwd(main, "ms_deform_bwd on the training step's inputs")
+    check_deform(fwd_main, "ms_deform_fwd on the training step's inputs")
     check(rec["learning_check"]["last5_mean"] < rec["learning_check"]["first5_mean"]
           and losses[-1] < losses[0], "the loss falls over 20 steps on a fixed batch")
-    return rec, main
+    return rec, main, fwd_main
 
 
 # --------------------------------------------------------------------------
@@ -2397,7 +2456,7 @@ def main() -> int:
     _, main = phase_rtdetr_serving(dev, smi, torch.bfloat16)
     bwd_cases = phase_deform_bwd(dev)
     train_fp32 = phase_rtdetr_train_fp32(dev)
-    train, bwd_main = phase_rtdetr_train(dev, smi)
+    train, bwd_main, fwd_train = phase_rtdetr_train(dev, smi)
     deform_entry = {
         "name": "ms_deform_fwd", "route": "cuda",
         "source": "multimodal_moe_torch/csrc/ms_deform_fwd.cu",
@@ -2409,7 +2468,9 @@ def main() -> int:
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "training_launches_per_step": train["launches_per_step"]["ms_deform_fwd"],
-        "training_queries": RT_TRAIN_Q,
+        "training_queries": RT_TRAIN_Q, "training_ms": fwd_train["kernel_ms"],
+        "training_plain_ms": fwd_train["plain_ms"], "training_bound_ms": fwd_train["bound_ms"],
+        "training_library_ms": fwd_train["library_ms"],
     }
     bwd_entry = {
         "name": "ms_deform_bwd", "route": "cuda",
@@ -2420,7 +2481,8 @@ def main() -> int:
         "ms": bwd_main["kernel_ms"], "kernel_ms": bwd_main["kernel_ms"],
         "plain_ms": bwd_main["plain_ms"], "bound_ms": bwd_main["bound_ms"],
         "bound_by": bwd_main["bound_by"], "library_ms": bwd_main["library_ms"],
-        "backward_ms": bwd_main["backward_ms"],
+        "backward_ms": bwd_main["backward_ms"], "memset_ms": bwd_main["memset_ms"],
+        "with_s_bound_ms": bwd_main["with_s_bound_ms"],
         "card_vs_cpu_decoder_layer_grads": train_fp32["decoder_layer_grad_rel_err"],
     }
 

@@ -25,6 +25,20 @@ def require_cuda() -> torch.device:
     return torch.device("cuda")
 
 
+def with_bad_locations(loc, bad, q0=0):
+    """Deformable-attention locations ``loc`` with ``bad`` in one coordinate
+    of two points and in both coordinates of a third, at queries ``q0`` to
+    ``q0 + 2`` (NH ≥ 2, L = 3)."""
+    loc = loc.copy()
+    loc[0, q0 + 1, 0, 1, 2, 0] = bad
+    loc[-1, q0 + 2, 1, 0, 1, 1] = bad
+    loc[0, q0, 0, 2, 3, :] = bad
+    return loc
+
+
+NON_FINITE = {"nan": np.nan, "inf": np.inf, "-inf": -np.inf, "1e30": 1e30}
+
+
 def randomize_norm(variables, seed: int = 0):
     """Give every BatchNorm non-trivial statistics and affine terms.
 

@@ -3,9 +3,11 @@ against the JAX op and the Pallas kernel in interpret mode (CPU).
 
 The problems are those of tests/test_deformable_pallas.py (in-range,
 out-of-bounds and integer locations) and tests/test_rtdetr.py (a naive
-per-point reference, an exact pixel centre, all out of bounds). Tolerance
-atol 1e-5 (float32; the three sum the 4·L·P terms in other orders). On CPU
-tensors the wrapper ``ms_deform_attn_fwd`` is the plain version exactly.
+per-point reference, an exact pixel centre, all out of bounds), and
+locations that are NaN, ±inf or 1e30, which the Pallas kernel samples as
+nothing. Tolerance atol 1e-5 (float32; the three sum the 4·L·P terms in
+other orders). On CPU tensors the wrapper ``ms_deform_attn_fwd`` is the
+plain version exactly.
 """
 
 import jax.numpy as jnp
@@ -13,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import require_cuda
+from _torch_parity import NON_FINITE, require_cuda, with_bad_locations
 from multimodal_moe_torch.ops import deformable as td
 from multimodal_moe_torch.ops import deformable_kernel as tk
 from multimodal_moe_tpu.ops import deformable as jd
@@ -79,6 +81,20 @@ def test_plain_matches_jax_and_pallas(loc_range):
     assert got.shape == (B, Q, NH * D)
     np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
     np.testing.assert_allclose(got, pallas, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("bad", sorted(NON_FINITE))
+def test_non_finite_locations_match_pallas(bad):
+    """A NaN, ±inf or 1e30 location samples nothing in the Pallas kernel
+    (interpret mode): the output stays finite and equals the port's."""
+    values, loc, attn = _problem(10)
+    loc = with_bad_locations(loc, NON_FINITE[bad])
+    got = tk.ms_deform_attn_fwd(torch.from_numpy(values), SHAPES,
+                                torch.from_numpy(loc), torch.from_numpy(attn)).numpy()
+    j = [jnp.asarray(a) for a in (values, loc, attn)]
+    ref = np.asarray(ms_deformable_attention_pallas(j[0], SHAPES, j[1], j[2], True))
+    assert np.isfinite(got).all() and np.isfinite(ref).all()
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
 
 
 def test_plain_integer_locations():
@@ -163,14 +179,25 @@ def test_wrapper_rejects_bad_inputs():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["test_shape", "headline_width", "integer"])
+@pytest.mark.parametrize("case", ["test_shape", "headline_width", "integer", "non_finite",
+                                  "d6_scalar", "d8_vector"])
 def test_cuda_kernel_matches_plain(case):
+    """B4 against the plain version on the card: the 16-byte path (D = 8,
+    32), the scalar path (D = 6) and locations that are NaN, ±inf and 1e30."""
     dev = require_cuda()
     if case == "test_shape":
         shapes, (values, loc, attn) = SHAPES, _problem(6)
     elif case == "integer":
         values, _, attn = _problem(7)
         shapes, loc = SHAPES, _integer_locations(8)
+    elif case == "non_finite":
+        shapes, (values, loc, attn) = SHAPES, _problem(13, b=2, d=32, q=16)
+        for i, bad in enumerate(NON_FINITE.values()):
+            loc = with_bad_locations(loc, bad, q0=4 * i)
+    elif case in ("d6_scalar", "d8_vector"):
+        shapes = ((22, 39), (11, 20), (6, 10))
+        values, loc, attn = _problem(14, shapes=shapes, b=2, nh=4, d=6 if case == "d6_scalar"
+                                     else 8, p=4, q=40)
     else:
         shapes = ((22, 39), (11, 20), (6, 10))
         values, loc, attn = _problem(9, shapes=shapes, b=2, nh=8, d=32, p=4, q=50)
@@ -180,5 +207,6 @@ def test_cuda_kernel_matches_plain(case):
     torch.cuda.synchronize()
     assert tk.ms_deform_fwd_launches == before + 1
     ref = td.ms_deformable_attention(values, shapes, loc, attn)
+    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(ref).all())
     tol = 1e-5 * max(1.0, float(values.abs().max()))
     assert float((got - ref).abs().max()) <= tol
