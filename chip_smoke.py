@@ -9,13 +9,23 @@ Phases (each prints one JSON line):
 1. device   -- the card's name and power limit (``nvidia-smi``).
 2. build    -- compiles ``multimodal_moe_torch/csrc/{nms_keep,ms_deform_fwd,
                ms_deform_bwd,moe_ffn_fwd,gmm}.cu`` with nvcc, all at once, into
-               ``multimodal_moe_torch/build/``; build seconds and ptxas
+               ``multimodal_moe_torch/build/``, and ``nms_keep.cu`` a second
+               time without its margin filter; build seconds and ptxas
                register and spill counts.
 3. nms_keep -- the NMS keep-mask kernel against its plain PyTorch version on
-               the card: B=128 K=512 class-agnostic and B=16 K=1024 with 3
-               classes, forced score ties, repeated boxes, boxes exactly at
-               the IoU threshold and one all-invalid image. Keep masks and
-               ``NmsResult`` must be equal (boxes and scores bitwise).
+               the card (``NMS_CASES``): B=128 K=512 class-agnostic, B=16
+               K=1024 and B=128 K=1024 with 3 classes (forced score ties,
+               repeated boxes, boxes exactly at the IoU threshold, one
+               all-invalid image), K=300 and K=1000 (no multiple of 64), B=1,
+               every box identical, every box disjoint, pairs at IoU exactly
+               0.7 at scales 5 to 1000, NaN / +-inf / 1e30 coordinates, and
+               thresholds 0.0 and 1.0. Keep masks and ``NmsResult`` must be
+               bitwise equal; each case's time called eagerly
+               (``kernel_ms``) and on the device alone (``device_ms``, a
+               CUDA graph of 20 calls), its bound and CTAs an image of the
+               mask launch. The build without the margin filter
+               (``NMS_NO_FILTER``) must give the same keep masks; its device
+               time beside the default build's (``no_filter_device_ms``).
 4. serving  -- YOLO-s (``arch="tpu"``, random weights from seed 0) at
                704x1248 through ``make_serving_step``:
                fp32 B=8 with TF32 off: full and topk tails bitwise equal, the
@@ -23,8 +33,10 @@ Phases (each prints one JSON line):
                card against CPU, fp32 B=1: logits within
                |d| <= 1e-4 + 1e-3*|cpu|;
                the headline, bf16 B=128 pool 512 full tail: forward ms, NMS
-               tail ms, img/s and peak memory, with the launch count of the
-               kernel taken over this run alone.
+               tail ms and its split (preselection, kernel, compaction),
+               img/s and peak memory, with the launch count of the kernel
+               taken over this run alone; the kernel on the forward's own
+               candidates at K=512 and K=1024 against its plain version.
 5. ms_deform_fwd -- the deformable-attention kernel against its plain
                version, and the grid_sample formulation against the plain
                version, at the RT-DETR headline (B=16, levels
@@ -218,6 +230,7 @@ from multimodal_moe_torch.ops.deformable import (  # noqa: E402
     ms_deform_attn_loc_attn_grads,
     ms_deformable_attention,
 )
+from multimodal_moe_torch.ops import nms as nms_module  # noqa: E402
 from multimodal_moe_torch.ops.nms import (  # noqa: E402
     NEG_INF,
     _batched_nms_plain,
@@ -236,7 +249,8 @@ IMG_H, IMG_W = 704, 1248
 POOL, IOU, SCORE_THR, MAX_DET = 512, 0.7, 0.001, 300
 # Published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores and HBM bandwidth. The bound is stated against these.
-PEAK_FP32_FLOPS = 67e12
+PEAK_FP32_FLOPS = 67e12  # counts a multiply-add as two operations
+PEAK_FP32_OPS = PEAK_FP32_FLOPS / 2  # single fp32 operations (no multiply-add)
 PEAK_BF16_FLOPS = 989e12  # dense tensor cores
 PEAK_TF32_FLOPS = 495e12  # dense tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -293,69 +307,205 @@ def results_equal(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+def bitwise_equal(a, b) -> bool:
+    """Equal bits, field by field (NaN boxes gathered from one input agree)."""
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) if x.dtype == torch.float32
+               else torch.equal(x, y) for x, y in zip(a, b))
+
+
 def max_abs(a, b) -> float:
     return max(float((x.double() - y.double()).abs().max()) if x.numel() else 0.0
                for x, y in zip(a, b))
 
 
-def nms_bound(b: int, k: int):
-    """Least time for the keep mask: every input byte read once, the mask
-    written once, every pair's IoU at the fp32 peak."""
+def nms_bound(valid: torch.Tensor, classes: "torch.Tensor | None" = None):
+    """Least time for the keep mask of ``valid`` (B, K): every input byte
+    read once, the mask written once, and for each pair j > i of valid
+    candidates the IoU's 14 single fp32 operations (no multiply-add) at half
+    the fp32 peak. With ``classes`` (class-aware NMS) a pair of different
+    classes needs one compare instead (its IoU is 0). The greedy walk's
+    K-step serial chain is not in it."""
+    b, k = valid.shape
+    n = valid.sum(dim=1, dtype=torch.float64)
+    pairs = float((n * (n - 1) / 2).sum())
+    same = pairs
+    if classes is not None:
+        image = torch.arange(b, device=valid.device, dtype=torch.int64)[:, None]
+        key = image * 2**33 + (classes.long() - int(classes.min()))
+        counts = torch.unique(key[valid.bool()], return_counts=True)[1].double()
+        same = float((counts * (counts - 1) / 2).sum())
     nbytes = b * k * (16 + 4 + 4) + b * k * 4
-    flops = b * k * (k - 1) // 2 * IOU_FLOPS
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = (same * IOU_FLOPS + (pairs - same)) / PEAK_FP32_OPS * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def synthetic_candidates(b, n, num_classes, seed, dev):
+def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
+    """Device milliseconds of one ``fn()``: ``calls`` calls captured in a CUDA
+    graph, replayed ``reps`` times between CUDA events, so the host's time
+    to launch is not in it."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * reps)
+
+
+def synthetic_candidates(b, n, num_classes, seed, dev, kind="synthetic"):
+    """Candidates for the NMS phase. ``synthetic``: random boxes, many score
+    ties, repeated boxes, a pair at IoU exactly 0.7 in image 1 and an
+    all-invalid image 0. The other kinds: ``identical`` (every box of an
+    image the same: each later candidate is removed), ``disjoint`` (no two
+    boxes touch: none is), ``at_threshold`` (pairs at IoU exactly 0.7 at
+    scales 0.5 to 1000), ``non_finite`` (NaN, +-inf and 1e30 coordinates)."""
     rng = np.random.default_rng(seed)
     xy = rng.uniform(0, 400, (b, n, 2))
     wh = rng.uniform(5, 120, (b, n, 2))
     boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
     scores = (rng.integers(1, 40, (b, n)) / 40.0).astype(np.float32)  # many ties
-    boxes[:, 1::7] = boxes[:, 0:1]                                     # repeated boxes
-    # IoU([0,0,10,10],[0,0,10,7]) is exactly 0.7: suppressed at IoU >= 0.7.
-    boxes[1, :4] = [[0, 0, 10, 10], [0, 0, 10, 7], [0, 0, 10, 10], [0, 0, 7, 10]]
-    scores[1, :4] = [0.99, 0.98, 0.98, 0.97]
-    scores[0] = 0.0                                                    # all invalid
     classes = rng.integers(0, num_classes, (b, n)).astype(np.int32)
-    classes[1, :4] = 0
+    if kind == "synthetic":
+        boxes[:, 1::7] = boxes[:, 0:1]                                 # repeated boxes
+        if b > 1:
+            # IoU([0,0,10,10],[0,0,10,7]) is exactly 0.7: suppressed at IoU >= 0.7.
+            boxes[1, :4] = [[0, 0, 10, 10], [0, 0, 10, 7], [0, 0, 10, 10], [0, 0, 7, 10]]
+            scores[1, :4] = [0.99, 0.98, 0.98, 0.97]
+            scores[0] = 0.0                                            # all invalid
+            classes[1, :4] = 0
+    elif kind == "identical":
+        boxes[:] = boxes[:, :1]
+    elif kind == "disjoint":
+        idx = np.arange(n)
+        grid = np.stack([(idx % 64) * 20.0, (idx // 64) * 20.0], -1)
+        boxes[:] = np.concatenate([grid, grid + 10.0], -1)
+    elif kind == "at_threshold":
+        # [x, y, x+s, y+s] against [x, y, x+s, y+0.7s]: IoU 0.7s^2 / (s^2 + 1e-7)
+        # rounds to float32(0.7) exactly for these scales and offsets.
+        for m in range(min(n // 2, 64)):
+            s = (5.0, 10.0, 100.0, 1000.0)[m % 4]
+            x0 = 2048.0 * (m + 1)
+            boxes[:, 2 * m] = [x0, 0, x0 + s, s]
+            boxes[:, 2 * m + 1] = [x0, 0, x0 + s, 0.7 * s]
+            scores[:, 2 * m], scores[:, 2 * m + 1] = 0.9, 0.8
+            classes[:, 2 * m + 1] = classes[:, 2 * m]
+    elif kind == "non_finite":
+        values = np.array([np.nan, np.inf, -np.inf, 1e30], np.float32)
+        bad = rng.random(boxes.shape) < 0.15
+        boxes = np.where(bad, values[rng.integers(0, 4, boxes.shape)], boxes).astype(np.float32)
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     return t(boxes), t(scores), t(classes)
 
 
+# (name, B, K, classes, class_agnostic, kind, iou_threshold)
+NMS_CASES = (
+    ("B128_K512", 128, 512, 1, True, "synthetic", IOU),
+    ("B16_K1024_3cls", 16, 1024, 3, False, "synthetic", IOU),
+    ("B128_K1024_3cls", 128, 1024, 3, False, "synthetic", IOU),
+    ("B4_K300", 4, 300, 3, False, "synthetic", IOU),
+    ("B4_K1000", 4, 1000, 3, False, "synthetic", IOU),
+    ("B1_K512", 1, 512, 1, True, "synthetic", IOU),
+    ("identical", 8, 512, 1, True, "identical", IOU),
+    ("disjoint", 8, 512, 1, True, "disjoint", IOU),
+    ("at_threshold", 8, 512, 2, False, "at_threshold", IOU),
+    ("non_finite", 8, 512, 3, False, "non_finite", IOU),
+    ("threshold_0", 8, 512, 3, False, "synthetic", 0.0),
+    ("threshold_1", 8, 512, 1, True, "synthetic", 1.0),
+)
+
+
+# The cases whose plain version, launches and build without the margin
+# filter are timed too.
+NMS_TIMED = ("B128_K512", "B16_K1024_3cls", "B128_K1024_3cls")
+# The second build of csrc/nms_keep.cu: the margin filter left out, the exact
+# zero-intersection shortcut kept. Only timed and checked against the first.
+NMS_NO_FILTER = ("NMS_MARGIN_FILTER=0",)
+
+
+def nms_ctas(b: int) -> int:
+    return nms_kernel.ctas_per_image(b, torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def nms_keep_args(boxes, scores, classes, k):
+    top_boxes, top_scores, top_classes = _preselect(
+        boxes, scores, classes, score_threshold=SCORE_THR, num_candidates=k)
+    return (top_boxes.contiguous(), (top_scores > NEG_INF / 2).to(torch.int32),
+            top_classes.contiguous())
+
+
+def nms_times(args, keep_kw) -> dict:
+    """The keep-mask wrapper's time called eagerly (``kernel_ms``, the host's
+    launch included, as every kernel of the port is timed) and its device
+    time (``device_ms``, a CUDA graph of 20 calls)."""
+    call = lambda: nms_kernel.nms_keep_mask(*args, **keep_kw)  # noqa: E731
+    return {"kernel_ms": cuda_ms(call, reps=50, warmup=3), "device_ms": graph_ms(call)}
+
+
+def nms_no_filter(args, keep_kw, keep, timed: bool) -> dict:
+    """The build without the margin filter on the same inputs: its keep mask
+    must equal ``keep``; with ``timed``, its device time beside the default
+    build's (no launch count: a comparison, not the path)."""
+    lib = nms_kernel._lib(NMS_NO_FILTER)
+    call = lambda: nms_kernel._launch(lib, *args, keep_kw["iou_threshold"],  # noqa: E731
+                                      keep_kw["class_agnostic"])
+    check(torch.equal(call(), keep), "keep mask without the margin filter")
+    return {"no_filter_device_ms": graph_ms(call)} if timed else {}
+
+
 def phase_kernel(dev) -> dict:
-    cases = [(128, 512, 1, True), (16, 1024, 3, False)]
-    report = []
-    for b, k, ncls, agnostic in cases:
-        boxes, scores, classes = synthetic_candidates(b, 2 * k, ncls, seed=k, dev=dev)
-        kw = dict(iou_threshold=IOU, score_threshold=SCORE_THR, max_det=MAX_DET,
+    report = {}
+    for name, b, k, ncls, agnostic, kind, iou in NMS_CASES:
+        boxes, scores, classes = synthetic_candidates(b, 2 * k, ncls, seed=k, dev=dev, kind=kind)
+        kw = dict(iou_threshold=iou, score_threshold=SCORE_THR, max_det=MAX_DET,
                   num_candidates=k, class_agnostic=agnostic)
-        top_boxes, top_scores, top_classes = _preselect(
-            boxes, scores, classes, score_threshold=SCORE_THR, num_candidates=k)
-        args = (top_boxes.contiguous(), (top_scores > NEG_INF / 2).to(torch.int32),
-                top_classes.contiguous())
-        keep = nms_kernel.nms_keep_mask(*args, iou_threshold=IOU, class_agnostic=agnostic)
-        keep_plain = nms_kernel._nms_keep_mask_plain(*args, iou_threshold=IOU,
-                                                     class_agnostic=agnostic)
+        args = nms_keep_args(boxes, scores, classes, k)
+        keep_kw = dict(iou_threshold=iou, class_agnostic=agnostic)
+        keep = nms_kernel.nms_keep_mask(*args, **keep_kw)
+        keep_plain = nms_kernel._nms_keep_mask_plain(*args, **keep_kw)
         got = batched_nms(boxes, scores, classes, **kw)
         ref = _batched_nms_plain(boxes, scores, classes, **kw)
         torch.cuda.synchronize()
-        check(torch.equal(keep, keep_plain), f"keep mask B={b} K={k}")
-        check(results_equal(got, ref), f"NmsResult B={b} K={k}")
-        check(not bool(got.valid[0].any()), "all-invalid image kept nothing")
-        check(got.valid[1, :2].tolist() == [True, True] and int(keep[1, 1]) == 0,
-              "IoU exactly at the threshold suppresses")
-        kernel_ms = cuda_ms(
-            lambda: nms_kernel.nms_keep_mask(*args, iou_threshold=IOU, class_agnostic=agnostic),
-            reps=20)
-        report.append({
-            "B": b, "K": k, "classes": ncls, "class_agnostic": agnostic,
+        check(torch.equal(keep, keep_plain), f"keep mask {name}")
+        check(bitwise_equal(got, ref), f"NmsResult {name}")
+        if kind == "synthetic" and b > 1:
+            check(not bool(got.valid[0].any()), "all-invalid image kept nothing")
+        if kind == "synthetic" and b > 1 and iou == IOU:
+            check(got.valid[1, :2].tolist() == [True, True] and int(keep[1, 1]) == 0,
+                  "IoU exactly at the threshold suppresses")
+        if kind == "identical":
+            check(bool((keep.sum(dim=1) <= ncls).all()), "identical boxes: one kept a class")
+        if kind == "disjoint":
+            check(torch.equal(keep, args[1]), "disjoint boxes: every valid one kept")
+        if kind == "at_threshold":
+            x1, y1, x2, y2 = args[0].unbind(-1)
+            paired = (x1 >= 2048) & (args[1] == 1)
+            short = paired & (y2 - y1 < x2 - x1)
+            check(bool(short.any()) and not bool(keep.bool()[short].any())
+                  and bool(keep.bool()[paired & ~short].all()),
+                  "pairs at IoU exactly 0.7: the second of each removed, the first kept")
+        report[name] = {
+            "B": b, "K": k, "classes": ncls, "class_agnostic": agnostic, "kind": kind,
+            "iou_threshold": iou, "ctas_per_image": nms_ctas(b),
             "kept": int(keep.sum()), "valid_out": int(got.valid.sum()),
-            "max_abs_err": max(max_abs(got, ref), float((keep - keep_plain).abs().max())),
-            "kernel_ms": kernel_ms, "bound_ms": nms_bound(b, k)[0],
-        })
+            "max_abs_err": float((keep - keep_plain).abs().max()),
+            **nms_times(args, keep_kw),
+            "bound_ms": nms_bound(args[1], None if agnostic else args[2])[0],
+            **nms_no_filter(args, keep_kw, keep, timed=name in NMS_TIMED),
+        }
+        if name in NMS_TIMED:
+            report[name]["plain_ms"] = cuda_ms(
+                lambda: nms_kernel._nms_keep_mask_plain(*args, **keep_kw), reps=2, warmup=1)
+            report[name]["launch_split_ms"] = nms_launch_split(
+                lambda: nms_kernel.nms_keep_mask(*args, **keep_kw))
     return {"phase": "nms_keep", "cases": report, **tf32_state()}
 
 
@@ -448,13 +598,12 @@ def phase_headline(dev, smi: str):
 
     forward_ms = cuda_ms(forward, reps=5)
     tail_ms = cuda_ms(tail, reps=10)
+    with torch.inference_mode():
+        tail_split = nms_tail_split(out["boxes"], scores, reps=10)
 
     # The kernel on the main path's own candidates, against its plain version.
     zeros = torch.zeros(scores.shape, dtype=torch.int32, device=dev)
-    top_boxes, top_scores, top_classes = _preselect(
-        out["boxes"], scores, zeros, score_threshold=SCORE_THR, num_candidates=POOL)
-    args = (top_boxes.contiguous(), (top_scores > NEG_INF / 2).to(torch.int32),
-            top_classes.contiguous())
+    args = nms_keep_args(out["boxes"], scores, zeros, POOL)
     kw = dict(iou_threshold=IOU, class_agnostic=False)
     keep = nms_kernel.nms_keep_mask(*args, **kw)
     keep_plain = nms_kernel._nms_keep_mask_plain(*args, **kw)
@@ -464,15 +613,22 @@ def phase_headline(dev, smi: str):
     torch.cuda.synchronize()
     check(torch.equal(keep, keep_plain), "keep mask on the headline candidates")
     check(results_equal(tail(), plain_tail), "headline kernel tail == plain tail")
-    kernel_ms = cuda_ms(lambda: nms_kernel.nms_keep_mask(*args, **kw), reps=50, warmup=3)
+    times = nms_times(args, kw)
     plain_ms = cuda_ms(lambda: nms_kernel._nms_keep_mask_plain(*args, **kw), reps=3, warmup=1)
-    bound_ms, bound_by = nms_bound(b, POOL)
+    bound_ms, bound_by = nms_bound(args[1], args[2])
     err = max(float((keep - keep_plain).abs().max()), max_abs(tail(), plain_tail))
+
+    # The evaluator's pool (K=1024) on the same forward.
+    args_1024 = nms_keep_args(out["boxes"], scores, zeros, 1024)
+    keep_1024 = nms_kernel.nms_keep_mask(*args_1024, **kw)
+    check(torch.equal(keep_1024, nms_kernel._nms_keep_mask_plain(*args_1024, **kw)),
+          "keep mask on the headline forward at K=1024")
 
     serving = {
         "phase": "serving_headline", "model": "yolo-s arch=tpu", "dtype": "bfloat16",
         "batch": b, "img_hw": [IMG_H, IMG_W], "pool": POOL, "max_det": MAX_DET,
         "tail": "full", "step_ms": step_ms, "forward_ms": forward_ms, "nms_tail_ms": tail_ms,
+        "nms_tail_split_ms": tail_split,
         "img_per_s": b * 1000.0 / step_ms, "peak_mem_gib": peak_gib,
         "valid_out": int(res.valid.sum()), "kept_in_pool": int(keep.sum()),
         "gpu": smi, **tf32_state(),
@@ -481,11 +637,77 @@ def phase_headline(dev, smi: str):
         "name": "nms_keep", "route": "cuda",
         "source": "multimodal_moe_torch/csrc/nms_keep.cu",
         "replaces": "multimodal_moe_tpu/ops/nms_pallas.py:40 (_nms_keep_kernel)",
-        "shape": {"B": b, "K": POOL}, "launches": launches, "max_abs_err": err,
-        "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "shape": {"B": b, "K": POOL}, "ctas_per_image": nms_ctas(b),
+        "launches": launches, "max_abs_err": err,
+        "ms": times["kernel_ms"], **times, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "launch_split_ms": nms_launch_split(lambda: nms_kernel.nms_keep_mask(*args, **kw)),
+        **nms_no_filter(args, kw, keep, timed=True),
+        **{f"k1024_{key}": ms for key, ms in nms_times(args_1024, kw).items()},
+        "k1024_bound_ms": nms_bound(args_1024[1], args_1024[2])[0],
+        "k1024_launch_split_ms": nms_launch_split(
+            lambda: nms_kernel.nms_keep_mask(*args_1024, **kw)),
     }
     return serving, kernel
+
+
+def nms_launch_split(fn, reps: int = 20) -> dict:
+    """Device ms of each of the keep mask's two launches (the IoU bitmask,
+    the walk) a call of ``fn``, by ``torch.profiler``."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {"mask_kernel": 0.0, "walk_kernel": 0.0}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        for name in split:
+            if name in e.key:
+                split[name] += us / 1e3 / reps
+    check(all(ms > 0 for ms in split.values()), "the profiler saw both NMS launches")
+    return split
+
+
+def nms_tail_split(boxes, scores, reps: int) -> dict:
+    """The NMS tail of ``batched_nms`` (``ops.nms._batched_nms_kernel``, run
+    as it is) stage by stage between CUDA events, recorded by wrappers around
+    its ``_preselect`` and ``_compact``: the preselection (the stable sort and
+    gathers), the keep-mask kernel with its inputs' casts, and the
+    compaction to max_det with the final gathers."""
+    zeros = torch.zeros(scores.shape, dtype=torch.int32, device=scores.device)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    totals = [0.0, 0.0, 0.0]
+    preselect, compact = nms_module._preselect, nms_module._compact
+
+    def timed_preselect(*args, **kwargs):
+        out = preselect(*args, **kwargs)
+        events[1].record()
+        return out
+
+    def timed_compact(*args, **kwargs):
+        events[2].record()
+        return compact(*args, **kwargs)
+
+    nms_module._preselect, nms_module._compact = timed_preselect, timed_compact
+    try:
+        for rep in range(reps + 1):
+            events[0].record()
+            nms_module._batched_nms_kernel(
+                boxes, scores, zeros, iou_threshold=IOU, score_threshold=SCORE_THR,
+                max_det=MAX_DET, num_candidates=POOL, class_agnostic=False)
+            events[3].record()
+            torch.cuda.synchronize()
+            if rep:  # the first pass warms up
+                for i in range(3):
+                    totals[i] += events[i].elapsed_time(events[i + 1])
+    finally:
+        nms_module._preselect, nms_module._compact = preselect, compact
+    return {"preselect": totals[0] / reps, "kernel": totals[1] / reps,
+            "compaction": totals[2] / reps}
 
 
 def ptxas_functions(log: str) -> list:
@@ -512,19 +734,21 @@ def ptxas_functions(log: str) -> list:
 def build_kernels() -> dict:
     """Build every kernel of the port at once (one nvcc each, in parallel)."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        libs = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
+    builds = [(name, ()) for name in KERNELS] + [("nms_keep", NMS_NO_FILTER)]
+    with ThreadPoolExecutor(len(builds)) as pool:
+        libs = list(pool.map(lambda nd: _build.build(*nd), builds))
     report = {}
-    for name in KERNELS:
-        log = _build.build_logs.get(name, "")
-        report[name] = {
-            "library": str(libs[name].relative_to(ROOT)),
-            "compiled": name in _build.build_seconds,
-            "nvcc_seconds": _build.build_seconds.get(name),
-            "functions": ptxas_functions(log),
+    for (name, defines), lib in zip(builds, libs):
+        key = _build.build_key(name, defines)
+        report[key] = {
+            "library": str(lib.relative_to(ROOT)),
+            "compiled": key in _build.build_seconds,
+            "nvcc_seconds": _build.build_seconds.get(key),
+            "functions": ptxas_functions(_build.build_logs.get(key, "")),
         }
     return {"phase": "build", "seconds": time.perf_counter() - t0, "kernels": report,
-            "nvcc_flags": {name: list(_build.nvcc_flags(name)) for name in KERNELS}}
+            "nvcc_flags": {_build.build_key(*nd): list(_build.nvcc_flags(*nd))
+                           for nd in builds}}
 
 
 # --------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` becomes ``build/lib<name>-<hash>.so``, where the hash
 covers the source and its compiler flags (``nvcc_flags``), so an edited
-source rebuilds and an unchanged one loads from the cache. Sources have a
+source rebuilds and an unchanged one loads from the cache. ``defines``
+(``-D`` macros) give a second build of a source, for measurements. Sources have a
 plain C interface (no
 PyTorch headers), which keeps a build to seconds. Nothing here runs at
 import time.
@@ -38,7 +39,7 @@ SOURCE_FLAGS = {
     "moe_ffn_fwd": tuple(f for f in NVCC_FLAGS if f != "--fmad=false"),
 }
 
-_LOADED: "Dict[str, ctypes.CDLL]" = {}
+_LOADED: "Dict[tuple, ctypes.CDLL]" = {}
 build_seconds: "Dict[str, float]" = {}
 build_logs: "Dict[str, str]" = {}
 
@@ -54,19 +55,24 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def nvcc_flags(name: str) -> "tuple[str, ...]":
-    return SOURCE_FLAGS.get(name, NVCC_FLAGS)
+def nvcc_flags(name: str, defines: "tuple[str, ...]" = ()) -> "tuple[str, ...]":
+    return SOURCE_FLAGS.get(name, NVCC_FLAGS) + tuple(f"-D{d}" for d in defines)
 
 
-def library_path(name: str) -> Path:
+def build_key(name: str, defines: "tuple[str, ...]" = ()) -> str:
+    """The name a build goes by in ``build_seconds`` and ``build_logs``."""
+    return name if not defines else f"{name}[{','.join(defines)}]"
+
+
+def library_path(name: str, defines: "tuple[str, ...]" = ()) -> Path:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(nvcc_flags(name)).encode())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(nvcc_flags(name, defines)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
+def build(name: str, defines: "tuple[str, ...]" = ()) -> Path:
     """Compile ``csrc/<name>.cu`` unless the cached library is current."""
-    out = library_path(name)
+    out = library_path(name, defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -76,23 +82,24 @@ def build(name: str) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [_nvcc(), *nvcc_flags(name), "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+        cmd = [_nvcc(), *nvcc_flags(name, defines), "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed for {name}.cu ({proc.returncode}):\n{proc.stderr}"
             )
         os.replace(tmp, out)
-        build_logs[name] = proc.stderr
+        build_logs[build_key(name, defines)] = proc.stderr
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    build_seconds[name] = time.perf_counter() - t0
+    build_seconds[build_key(name, defines)] = time.perf_counter() - t0
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: "tuple[str, ...]" = ()) -> ctypes.CDLL:
     """Build if needed, then load ``lib<name>``; cached per process."""
-    if name not in _LOADED:
-        _LOADED[name] = ctypes.CDLL(str(build(name)))
-    return _LOADED[name]
+    key = (name, tuple(defines))
+    if key not in _LOADED:
+        _LOADED[key] = ctypes.CDLL(str(build(name, tuple(defines))))
+    return _LOADED[key]

@@ -8,40 +8,104 @@ alive removes every later candidate whose IoU with it is >= the threshold
 ``(B, K)`` int32 keep mask, compacted to ``max_det`` outside.
 
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version.
-There is no fallback from one to the other.
+There is no fallback from one to the other: a failed build or launch
+raises. The kernel is two launches: :func:`ctas_per_image` CTAs an image
+write the IoU bitmask into a scratch buffer (as many words an image as the
+library's ``nms_scratch_words`` says), then one CTA an image walks it.
+:func:`pair_suppresses` is the kernel's per-pair decision rule (its
+zero-overlap shortcut and margin filter included) in plain PyTorch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from .boxes import pairwise_iou
+from .boxes import EPS, box_area, pairwise_iou
 
 # Launches of the CUDA kernel in this process (the plain version does not count).
 nms_keep_launches = 0
 
-SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
+MAX_CTAS = 32    # CTAs an image for the mask
 
 
-def _lib():
+def _lib(defines: "tuple[str, ...]" = ()):
+    """The kernel's library; ``defines`` load another build of the source
+    (``("NMS_MARGIN_FILTER=0",)``: without the margin filter)."""
     from .._build import load
 
-    lib = load("nms_keep")
+    lib = load("nms_keep", defines)
+    lib.nms_max_k.argtypes = []
+    lib.nms_max_k.restype = ctypes.c_int
+    lib.nms_scratch_words.argtypes = [ctypes.c_int]
+    lib.nms_scratch_words.restype = ctypes.c_int
     lib.nms_keep_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
     ]
     lib.nms_keep_launch.restype = ctypes.c_int
     return lib
 
 
-def smem_bytes(k: int) -> int:
-    """Shared memory the kernel needs for a pool of ``k`` (csrc/nms_keep.cu)."""
-    w = (k + 63) // 64
-    return w * (k + 1) * 8 + k * 16 + k * 4
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def ctas_per_image(b: int, sm_count: int = 132) -> int:
+    """CTAs that compute one image's mask: the least power of two, at most
+    ``MAX_CTAS``, with which the ``b`` images' CTAs fill ``sm_count`` SMs
+    twice."""
+    c = 1
+    while c < MAX_CTAS and b * c < 2 * sm_count:
+        c *= 2
+    return c
+
+
+def filter_factors(iou_threshold: float):
+    """The kernel's margin factors ``(c_lo, c_hi)`` for a threshold, float32
+    tensors, NaN where the filter is off (t <= 0, or t outside
+    [2**-90, 2**90], or NaN)."""
+    t = torch.tensor(iou_threshold, dtype=torch.float32)
+    on = bool(t > 0) and 2.0**-90 <= float(t) <= 2.0**90
+    if not on:
+        nan = torch.tensor(float("nan"), dtype=torch.float32)
+        return nan, nan
+    return (t * torch.tensor(1 - 2.0**-20, dtype=torch.float32),
+            t * torch.tensor(1 + 2.0**-20, dtype=torch.float32))
+
+
+def pair_suppresses(box_i, box_j, iou_threshold: float, same_class=None):
+    """The kernel's decision for the pair (i, j) in plain PyTorch: whether
+    row i's box removes column j's (``pairwise_iou >= iou_threshold``, with a
+    different class counting as IoU 0). Boxes broadcast against each other.
+
+    No division where the answer is already known: for t <= 0 a zero
+    intersection counts unless ``area_i + area_j`` is NaN (its IoU is +0 or
+    NaN); for t > 0 the margin filter settles every pair whose IoU lies
+    clearly off the threshold, a zero intersection included. The rest divide
+    in pairwise_iou's order."""
+    t = torch.tensor(iou_threshold, dtype=torch.float32)
+    lt = torch.maximum(box_i[..., 0:2], box_j[..., 0:2])
+    rb = torch.minimum(box_i[..., 2:4], box_j[..., 2:4])
+    wh = (rb - lt).clamp_min(0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    area_sum = box_area(box_i) + box_area(box_j)
+    den = (area_sum - inter) + EPS
+    divided = inter / den >= t
+    zero_hits = bool(0.0 >= t)
+    if zero_hits:
+        bit = torch.where(inter == 0.0, ~torch.isnan(area_sum), divided)
+    else:
+        c_lo, c_hi = filter_factors(iou_threshold)
+        sure = inter > c_hi * den
+        bit = torch.where(sure | (inter < c_lo * den), sure, divided)
+    if same_class is None:
+        return bit
+    return torch.where(same_class, bit, zero_hits)
 
 
 def _nms_keep_mask_plain(boxes, valid, classes, *, iou_threshold, class_agnostic):
@@ -90,23 +154,31 @@ def nms_keep_mask(
         raise ValueError(f"unsupported device {boxes.device}")
     if not (boxes.is_contiguous() and valid.is_contiguous() and classes.is_contiguous()):
         raise ValueError("nms_keep_mask needs contiguous tensors")
-    if smem_bytes(k) > SMEM_LIMIT:
-        raise ValueError(
-            f"pool of {k} candidates needs {smem_bytes(k)} B of shared memory; "
-            f"the kernel takes at most {SMEM_LIMIT} B (K <= 1024 is the design range)"
-        )
-    keep = torch.empty((b, k), dtype=torch.int32, device=boxes.device)
     if b == 0 or k == 0:
-        return keep
-    lib = _lib()
+        return torch.empty((b, k), dtype=torch.int32, device=boxes.device)
+    keep = _launch(_lib(), boxes, valid, classes, iou_threshold, class_agnostic)
+    global nms_keep_launches
+    nms_keep_launches += 1
+    return keep
+
+
+def _launch(lib, boxes, valid, classes, iou_threshold, class_agnostic) -> torch.Tensor:
+    """Launch ``lib``'s kernel on checked, non-empty CUDA tensors; raise on
+    failure."""
+    b, k, _ = boxes.shape
+    if k > lib.nms_max_k():
+        raise ValueError(f"pool of {k} candidates: the kernel takes K <= {lib.nms_max_k()}")
+    keep = torch.empty((b, k), dtype=torch.int32, device=boxes.device)
+    scratch = torch.empty(b * lib.nms_scratch_words(k), dtype=torch.int32,
+                          device=boxes.device)
+    ctas = ctas_per_image(b, _sm_count(boxes.get_device()))
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream(boxes.device).cuda_stream
         err = lib.nms_keep_launch(
             boxes.data_ptr(), valid.data_ptr(), classes.data_ptr(), keep.data_ptr(),
-            b, k, float(iou_threshold), int(bool(class_agnostic)), stream,
+            scratch.data_ptr(), b, k, float(iou_threshold), int(bool(class_agnostic)),
+            ctas, stream,
         )
     if err != 0:
         raise RuntimeError(f"nms_keep kernel launch failed: cudaError_t {err}")
-    global nms_keep_launches
-    nms_keep_launches += 1
     return keep

@@ -265,3 +265,40 @@ def rtdetr_numpy_variables(jmodel, h: int, w: int, seed: int):
         offsets["bias"][:] = _grid_init(jmodel.num_heads, 3, jmodel.num_points)
         variables["params"][f"cls_head{li}"]["bias"][:] = CLS_PRIOR_BIAS
     return variables
+
+
+def nms_boxes(kind: str, n: int, seed: int) -> np.ndarray:
+    """``(n, 4)`` float32 xyxy boxes of one kind for the NMS tests."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, 400, (n, 2))
+    wh = rng.uniform(0, 120, (n, 2))
+    boxes = np.concatenate([xy, xy + wh], -1)
+    if kind == "touching":
+        # Every box shares an edge or a corner with the one before it.
+        boxes[1::2, 0] = boxes[0::2, 2][: len(boxes[1::2])]
+        boxes[1::2, 1] = boxes[0::2, 1][: len(boxes[1::2])]
+    elif kind == "disjoint":
+        boxes = np.stack([np.arange(n) * 20.0, np.zeros(n), np.arange(n) * 20.0 + 10, np.full(n, 10.0)], -1)
+    elif kind == "identical":
+        boxes[:] = boxes[0]
+    elif kind == "at_threshold":
+        # IoU([0,0,s,s], [0,0,s,0.7s]) is exactly 0.7 for these scales.
+        s = rng.choice([1.0, 10.0, 100.0, 1000.0, 0.5], n // 2)
+        boxes[0::2][: len(s)] = np.stack([0 * s, 0 * s, s, s], -1)
+        boxes[1::2][: len(s)] = np.stack([0 * s, 0 * s, s, 0.7 * s], -1)
+    elif kind == "degenerate":
+        boxes[::3, 2] = boxes[::3, 0]          # zero width
+        boxes[1::3, 3] = boxes[1::3, 1] - 5    # negative height
+    elif kind == "huge":
+        # Areas near the float32 limit: t * den may overflow.
+        boxes = boxes * np.float32(2.0**55)
+    elif kind == "non_finite":
+        values = np.array([np.nan, np.inf, -np.inf, 0.0, 5.0, 1e30, -1e30])
+        pick = rng.integers(0, len(values), (n, 4))
+        mix = rng.random((n, 4)) < 0.5
+        boxes = np.where(mix, values[pick], boxes)
+    return boxes.astype(np.float32)
+
+
+NMS_KINDS = ["random", "touching", "disjoint", "identical", "at_threshold", "degenerate",
+             "non_finite", "huge"]

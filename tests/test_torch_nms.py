@@ -4,7 +4,13 @@ On the CPU the port runs its plain versions (the scan mirror and the keep
 mask sweep); they are held to the JAX scan (``batched_nms``) and to the
 Pallas kernel in interpret mode. ``valid`` and ``classes`` must be equal,
 boxes and scores within rtol 1e-6 (they are gathered, not computed, so
-they are in fact equal). The CUDA kernel test skips without a card.
+they are in fact equal). The edge-box cases (touching, disjoint,
+identical, degenerate, huge, NaN and ±inf boxes, pairs at IoU exactly 0.7;
+thresholds 0 and 1) hold the port to JAX's IoU, its scan and the Pallas
+kernel where the float inputs are not ordinary. The CUDA kernel test (12 cases: pools off a
+multiple of 64, B=1, the evaluator's pool at B=128, identical, disjoint and
+non-finite boxes, pairs at IoU exactly 0.7, thresholds 0 and 1) holds the
+kernel bitwise to the plain versions and skips without a card.
 """
 
 import jax.numpy as jnp
@@ -12,10 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import require_cuda
+from _torch_parity import NMS_KINDS, nms_boxes, require_cuda
 from multimodal_moe_torch.ops import boxes as tboxes
 from multimodal_moe_torch.ops import nms_kernel
-from multimodal_moe_torch.ops.nms import _batched_nms_plain, batched_nms
+from multimodal_moe_torch.ops.nms import NEG_INF, _batched_nms_plain, _preselect, batched_nms
 from multimodal_moe_tpu.ops import boxes as jboxes
 from multimodal_moe_tpu.ops.nms import batched_nms as jax_batched_nms
 from multimodal_moe_tpu.ops.nms_pallas import batched_nms_pallas, nms_keep_mask_pallas
@@ -32,6 +38,19 @@ def _random_batch(b=3, n=256, seed=0, ties=False, num_classes=1):
         boxes[:, 1::7] = boxes[:, 0:1]
     else:
         scores = rng.uniform(0, 1, (b, n)).astype(np.float32)
+    classes = rng.integers(0, num_classes, (b, n)).astype(np.int32)
+    return boxes, scores, classes
+
+
+# Every kind of _torch_parity.nms_boxes but the plain random one.
+EDGE_KINDS = [kind for kind in NMS_KINDS if kind != "random"]
+EDGE_THRESHOLDS = [0.0, 0.7, 1.0]
+
+
+def _edge_batch(kind, b=2, n=160, seed=16, num_classes=3):
+    rng = np.random.default_rng(seed)
+    boxes = np.stack([nms_boxes(kind, n, seed=seed + i) for i in range(b)])
+    scores = rng.uniform(0, 1, (b, n)).astype(np.float32)
     classes = rng.integers(0, num_classes, (b, n)).astype(np.int32)
     return boxes, scores, classes
 
@@ -125,6 +144,14 @@ class TestAgainstJaxScan:
         with pytest.raises(ValueError):
             batched_nms(t(boxes), t(scores), topk_mode="fast")
 
+    @pytest.mark.parametrize("t", EDGE_THRESHOLDS)
+    @pytest.mark.parametrize("kind", EDGE_KINDS)
+    def test_edge_boxes_class_aware(self, kind, t):
+        boxes, scores, classes = _edge_batch(kind)
+        got, ref = _both(boxes, scores, classes, iou_threshold=t, score_threshold=0.05,
+                         max_det=100, num_candidates=128)
+        _assert_same(got, ref)
+
 
 class TestAgainstPallas:
     @pytest.mark.parametrize("seed", [0, 3])
@@ -150,6 +177,20 @@ class TestAgainstPallas:
         )
         np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
+    @pytest.mark.parametrize("t", EDGE_THRESHOLDS)
+    @pytest.mark.parametrize("kind", EDGE_KINDS)
+    def test_keep_mask_matches_pallas_kernel_at_edge_boxes(self, kind, t):
+        boxes, scores, _ = _edge_batch(kind, n=96)
+        valid = (scores > 0.1).astype(np.int32)
+        ref = nms_keep_mask_pallas(jnp.asarray(boxes.transpose(0, 2, 1)), jnp.asarray(valid),
+                                   iou_threshold=t, interpret=True)
+        got = nms_kernel.nms_keep_mask(
+            torch.from_numpy(boxes), torch.from_numpy(valid),
+            torch.zeros(valid.shape, dtype=torch.int32),
+            iou_threshold=t, class_agnostic=True,
+        )
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
 
 def test_pairwise_iou_bitwise():
     boxes, _, _ = _random_batch(b=2, n=64, seed=12)
@@ -160,6 +201,18 @@ def test_pairwise_iou_bitwise():
     ref_e = np.asarray(jboxes.elementwise_iou(jnp.asarray(boxes[0]), jnp.asarray(boxes[1])))
     got_e = tboxes.elementwise_iou(torch.from_numpy(boxes[0]), torch.from_numpy(boxes[1]))
     np.testing.assert_array_equal(got_e.numpy(), ref_e)
+
+
+@pytest.mark.parametrize("kind", EDGE_KINDS)
+def test_pairwise_iou_bitwise_at_edge_boxes(kind):
+    """Equal bits where the IoU is a number; NaN at the same pairs (a NaN's
+    payload is not part of the contract: both sides only compare it)."""
+    boxes, _, _ = _edge_batch(kind, n=96)
+    ref = np.asarray(jboxes.pairwise_iou(jnp.asarray(boxes), jnp.asarray(boxes)))
+    got = tboxes.pairwise_iou(torch.from_numpy(boxes), torch.from_numpy(boxes)).numpy()
+    number = ~np.isnan(ref)
+    np.testing.assert_array_equal(np.isnan(got), ~number)
+    np.testing.assert_array_equal(got[number].view(np.int32), ref[number].view(np.int32))
 
 
 def test_box_conversions_round_trip():
@@ -191,20 +244,58 @@ def test_cpu_path_does_not_count_launches():
     assert nms_kernel.nms_keep_launches == before
 
 
+def _bitwise_equal(x, y) -> bool:
+    """Equal bits: NaN boxes gathered from the same input compare equal."""
+    if x.dtype == torch.float32:
+        return torch.equal(x.view(torch.int32), y.view(torch.int32))
+    return torch.equal(x, y)
+
+
+# (b, k, class_agnostic, kind, iou_threshold): "ties" is _random_batch's
+# forced score ties and repeated boxes with an all-invalid image; the other
+# kinds are _torch_parity.nms_boxes'.
+CARD_CASES = [
+    (128, 512, True, "ties", 0.7),
+    (16, 1024, False, "ties", 0.7),
+    (4, 300, False, "ties", 0.7),
+    (4, 1000, False, "ties", 0.7),
+    (1, 512, True, "random", 0.7),
+    (128, 1024, False, "ties", 0.7),
+    (8, 512, True, "identical", 0.7),
+    (8, 512, True, "disjoint", 0.7),
+    (8, 512, False, "at_threshold", 0.7),
+    (8, 512, False, "non_finite", 0.7),
+    (8, 512, False, "ties", 0.0),
+    (8, 512, True, "ties", 1.0),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,k,agnostic", [(128, 512, True), (16, 1024, False)])
-def test_cuda_kernel_matches_plain(b, k, agnostic):
+@pytest.mark.parametrize("b,k,agnostic,kind,t", CARD_CASES)
+def test_cuda_kernel_matches_plain(b, k, agnostic, kind, t):
     dev = require_cuda()
     boxes, scores, classes = _random_batch(b=b, n=k + 64, seed=15, ties=True, num_classes=3)
-    scores[0] = 0.0  # one all-invalid image
-    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    kw = dict(iou_threshold=0.7, score_threshold=0.001, max_det=300,
+    if kind != "ties":
+        boxes = np.stack([nms_boxes(kind, k + 64, seed=15 + i) for i in range(b)])
+    if b > 1:
+        scores[0] = 0.0  # one all-invalid image
+    t_ = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    kw = dict(iou_threshold=t, score_threshold=0.001, max_det=300,
               num_candidates=k, class_agnostic=agnostic)
     before = nms_kernel.nms_keep_launches
-    got = batched_nms(t(boxes), t(scores), t(classes), **kw)
+    got = batched_nms(t_(boxes), t_(scores), t_(classes), **kw)
     torch.cuda.synchronize()
     assert nms_kernel.nms_keep_launches == before + 1
-    ref = _batched_nms_plain(t(boxes), t(scores), t(classes), **kw)
+    ref = _batched_nms_plain(t_(boxes), t_(scores), t_(classes), **kw)
     for x, y in zip(got, ref):
-        assert torch.equal(x, y)
-    assert not got.valid[0].any()
+        assert _bitwise_equal(x, y)
+    if b > 1:
+        assert not got.valid[0].any()
+    # The keep mask itself, on the same preselected candidates.
+    top_boxes, top_scores, top_classes = _preselect(
+        t_(boxes), t_(scores), t_(classes), score_threshold=0.001, num_candidates=k)
+    args = (top_boxes.contiguous(), (top_scores > NEG_INF / 2).to(torch.int32),
+            top_classes.contiguous())
+    keep = nms_kernel.nms_keep_mask(*args, iou_threshold=t, class_agnostic=agnostic)
+    plain = nms_kernel._nms_keep_mask_plain(*args, iou_threshold=t, class_agnostic=agnostic)
+    assert torch.equal(keep, plain)
