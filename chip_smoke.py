@@ -16,7 +16,9 @@ Phases (each prints one JSON line):
                the card (``NMS_CASES``): B=128 K=512 class-agnostic, B=16
                K=1024 and B=128 K=1024 with 3 classes (forced score ties,
                repeated boxes, boxes exactly at the IoU threshold, one
-               all-invalid image), K=300 and K=1000 (no multiple of 64), B=1,
+               all-invalid image), above the shared-memory walk B=16 K=1025,
+               2048 and 4096 with 3 classes and B=2 K=18,018 (the headline
+               model's every anchor), K=300 and K=1000 (no multiple of 64), B=1,
                every box identical, every box disjoint, pairs at IoU exactly
                0.7 at scales 5 to 1000, NaN / +-inf / 1e30 coordinates, and
                thresholds 0.0 and 1.0. Keep masks and ``NmsResult`` must be
@@ -37,6 +39,24 @@ Phases (each prints one JSON line):
                img/s and peak memory, with the launch count of the kernel
                taken over this run alone; the kernel on the forward's own
                candidates at K=512 and K=1024 against its plain version.
+4b. evaluate -- the evaluation path at 704x1248: a YOLO-s run dir (random
+               weights from seed 0, ``model_config.json`` and
+               ``CheckpointManager``'s ``weights/best``) loaded onto the card
+               by ``loading.load_detector`` and scored by
+               ``evaluator.evaluate_detector`` with ``make_inference_step``
+               (pool 1024) over four seeded batches of 16 (one with two
+               padded rows, one as YUV420 planes), ground truth planted from
+               a first pass's detections; then one batch of 16 each of
+               MoE-YOLO-s (E=4, ``auto``, solar bins) and RT-DETR r50vd
+               (``use_nms=False``). Checks: each batch's tail bitwise equal
+               to the plain tail on the same forward outputs on the CPU, the
+               YUV frames to the CPU conversion, the metrics to
+               ``coco_map.evaluate_detections`` on the recorded results, 0 <
+               mAP50 < 1, B1 launched once a batch and B4 six times;
+               printed: the metrics, the three ``speed_*_ms_per_img``,
+               ``model_flops_g``, and ``artifacts.collect_runtime_info``,
+               which names the card (written with ``save_metrics_json`` and
+               ``save_run_metadata_artifacts`` in a temp dir).
 5. ms_deform_fwd -- the deformable-attention kernel against its plain
                version, and the grid_sample formulation against the plain
                version, at the RT-DETR headline (B=16, levels
@@ -192,6 +212,7 @@ import re
 import struct
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -204,7 +225,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from multimodal_moe_torch import _build  # noqa: E402
+from multimodal_moe_torch import _build, loading  # noqa: E402
 from multimodal_moe_torch.losses import hungarian as hungarian_module  # noqa: E402
 from multimodal_moe_torch.losses import tal as tal_module  # noqa: E402
 from multimodal_moe_torch.models import moe as moe_module  # noqa: E402
@@ -217,10 +238,12 @@ from multimodal_moe_torch.models.rtdetr import (  # noqa: E402
 )
 from multimodal_moe_torch.models.yolo import YoloDetector  # noqa: E402
 from multimodal_moe_torch.ops import (  # noqa: E402
+    coco_map,
     deformable_kernel,
     gmm_kernel,
     moe_kernels,
     nms_kernel,
+    preprocess,
 )
 from multimodal_moe_torch.ops.assignment import assignment_margin  # noqa: E402
 from multimodal_moe_torch.ops.augment import augment_draws  # noqa: E402
@@ -243,7 +266,9 @@ from multimodal_moe_torch.serving import (  # noqa: E402
     make_serving_step,
     yolo_serving_nms,
 )
+from multimodal_moe_torch.train import artifacts, evaluator  # noqa: E402
 from multimodal_moe_torch.train.detection import DetectionTrainer, DetTrainConfig  # noqa: E402
+from multimodal_moe_torch.train.state import CheckpointManager  # noqa: E402
 
 IMG_H, IMG_W = 704, 1248
 POOL, IOU, SCORE_THR, MAX_DET = 512, 0.7, 0.001, 300
@@ -406,6 +431,22 @@ def synthetic_candidates(b, n, num_classes, seed, dev, kind="synthetic"):
     return t(boxes), t(scores), t(classes)
 
 
+# YOLO-s's anchors at 704x1248 (88x156 + 44x78 + 22x39): the largest pool
+# JAX's batched_nms takes on the headline's forward.
+HEADLINE_ANCHORS = sum((IMG_H // s) * (IMG_W // s) for s in (8, 16, 32))
+
+
+def headline_candidates(b: int, dev):
+    """Boxes and scores of the headline's model (YOLO-s bf16, seed 0) on
+    ``b`` seeded images, and class 0 for every anchor."""
+    model = build_model(torch.bfloat16, dev)
+    with torch.inference_mode():
+        out = model(random_images(b, seed=2, dev=dev).float() / 255.0)
+        scores = torch.sigmoid(out["cls_logits"][..., 0])
+    zeros = torch.zeros(scores.shape, dtype=torch.int32, device=dev)
+    return out["boxes"].clone(), scores.clone(), zeros
+
+
 # (name, B, K, classes, class_agnostic, kind, iou_threshold)
 NMS_CASES = (
     ("B128_K512", 128, 512, 1, True, "synthetic", IOU),
@@ -420,12 +461,18 @@ NMS_CASES = (
     ("non_finite", 8, 512, 3, False, "non_finite", IOU),
     ("threshold_0", 8, 512, 3, False, "synthetic", 0.0),
     ("threshold_1", 8, 512, 1, True, "synthetic", 1.0),
+    # Above the shared-memory walk's K = 1024: the kernel's other two launches.
+    ("B16_K1025_3cls", 16, 1025, 3, False, "synthetic", IOU),
+    ("B16_K2048_3cls", 16, 2048, 3, False, "synthetic", IOU),
+    ("B16_K4096_3cls", 16, 4096, 3, False, "synthetic", IOU),
+    ("B2_K18018_headline", 2, HEADLINE_ANCHORS, 1, False, "headline", IOU),
 )
 
 
 # The cases whose plain version, launches and build without the margin
 # filter are timed too.
-NMS_TIMED = ("B128_K512", "B16_K1024_3cls", "B128_K1024_3cls")
+NMS_TIMED = ("B128_K512", "B16_K1024_3cls", "B128_K1024_3cls", "B16_K1025_3cls",
+             "B16_K2048_3cls", "B16_K4096_3cls", "B2_K18018_headline")
 # The second build of csrc/nms_keep.cu: the margin filter left out, the exact
 # zero-intersection shortcut kept. Only timed and checked against the first.
 NMS_NO_FILTER = ("NMS_MARGIN_FILTER=0",)
@@ -464,7 +511,11 @@ def nms_no_filter(args, keep_kw, keep, timed: bool) -> dict:
 def phase_kernel(dev) -> dict:
     report = {}
     for name, b, k, ncls, agnostic, kind, iou in NMS_CASES:
-        boxes, scores, classes = synthetic_candidates(b, 2 * k, ncls, seed=k, dev=dev, kind=kind)
+        if kind == "headline":
+            boxes, scores, classes = headline_candidates(b, dev)
+        else:
+            boxes, scores, classes = synthetic_candidates(b, 2 * k, ncls, seed=k, dev=dev,
+                                                          kind=kind)
         kw = dict(iou_threshold=iou, score_threshold=SCORE_THR, max_det=MAX_DET,
                   num_candidates=k, class_agnostic=agnostic)
         args = nms_keep_args(boxes, scores, classes, k)
@@ -502,8 +553,9 @@ def phase_kernel(dev) -> dict:
             **nms_no_filter(args, keep_kw, keep, timed=name in NMS_TIMED),
         }
         if name in NMS_TIMED:
+            reps = 2 if k <= 1024 else 1
             report[name]["plain_ms"] = cuda_ms(
-                lambda: nms_kernel._nms_keep_mask_plain(*args, **keep_kw), reps=2, warmup=1)
+                lambda: nms_kernel._nms_keep_mask_plain(*args, **keep_kw), reps=reps, warmup=1)
             report[name]["launch_split_ms"] = nms_launch_split(
                 lambda: nms_kernel.nms_keep_mask(*args, **keep_kw))
     return {"phase": "nms_keep", "cases": report, **tf32_state()}
@@ -651,9 +703,223 @@ def phase_headline(dev, smi: str):
     return serving, kernel
 
 
+# --------------------------------------------------------------------------
+# the evaluation path: a run dir loaded, evaluated, written out
+# --------------------------------------------------------------------------
+
+EVAL_B, EVAL_BATCHES, EVAL_POOL = 16, 4, 1024   # evaluator.make_inference_step's pool
+EVAL_FAMILIES = (
+    {"family": "yolo", "variant": "s"},
+    {"family": "moe", "variant": "s", "num_experts": 4},
+    {"family": "rtdetr", "hidden_dim": 256, "num_queries": RT_QUERIES,
+     "num_decoder_layers": RT_LAYERS},
+)
+
+
+def write_run_dir(root: Path, cfg: dict, seed: int = 0) -> Path:
+    """A run dir of the port: ``model_config.json`` and ``weights/best``,
+    random weights from ``seed`` saved by ``CheckpointManager``."""
+    run = root / cfg["family"]
+    run.mkdir(parents=True)
+    (run / "model_config.json").write_text(json.dumps(cfg))
+    torch.manual_seed(seed)
+    _, template = loading.build_detector(cfg)
+    trainer = DetectionTrainer(template, DetTrainConfig(variant=cfg.get("variant", "s")),
+                               steps_per_epoch=1, device="cpu")
+    CheckpointManager(run / "weights").save_best(trainer.init_state())
+    return run
+
+
+def eval_batches(n: int, b: int, seed: int) -> list:
+    """``n`` seeded host batches of ``b`` uint8 frames at 704x1248, a solar
+    bin a frame; batch 1 has two padded rows (``batch_valid`` false) and
+    batch 2 comes as YUV420 planes, as the ``store="yuv420"`` loader gives
+    them."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        batch = {"batch_valid": np.ones(b, bool),
+                 "solar_bin": rng.integers(0, moe_module.NUM_SOLAR_BINS, b).astype(np.int32)}
+        if i == 2:
+            batch.update(y=rng.integers(0, 256, (b, IMG_H, IMG_W), dtype=np.uint8),
+                         cb=rng.integers(0, 256, (b, IMG_H // 2, IMG_W // 2), dtype=np.uint8),
+                         cr=rng.integers(0, 256, (b, IMG_H // 2, IMG_W // 2), dtype=np.uint8))
+        else:
+            batch["image"] = rng.integers(0, 256, (b, IMG_H, IMG_W, 3), dtype=np.uint8)
+        if i == 1 and b > 2:
+            batch["batch_valid"][-2:] = False
+        out.append(batch)
+    return out
+
+
+def host_rgb(batch: dict) -> np.ndarray:
+    """The batch's frames as uint8 RGB, converted on the CPU where it is YUV."""
+    if "y" not in batch:
+        return batch["image"]
+    planes = (torch.from_numpy(batch[k]) for k in ("y", "cb", "cr"))
+    return preprocess.yuv420_to_rgb_u8(*planes).numpy()
+
+
+def plant_ground_truth(batches, detect, seed: int) -> None:
+    """Ground truth from a first pass's kept boxes: ranks 0, 2 and 5 of each
+    image jittered by ~2 px, one box nothing detects, one padded slot; so
+    mAP50 lies strictly between 0 and 1."""
+    rng = np.random.default_rng(seed)
+    for batch in batches:
+        res = detect(batch)
+        b = len(res.valid)
+        gt = np.zeros((b, 5, 4), np.float32)
+        mask = np.zeros((b, 5), bool)
+        for i in range(b):
+            kept = res.boxes[i][res.valid[i]].cpu().numpy()[[0, 2, 5]]
+            gt[i, :3] = kept + rng.normal(0, 2.0, kept.shape)
+            gt[i, 3] = [40.0, 40.0, 140.0, 90.0]
+            mask[i, :4] = True
+        batch.update(gt_boxes=gt, gt_mask=mask)
+
+
+def coco_of(batches, results) -> dict:
+    """``coco_map.evaluate_detections`` on recorded results, as
+    ``evaluate_detector`` gathers them."""
+    det_boxes, det_scores, gts = [], [], []
+    for batch, res in zip(batches, results):
+        for i in range(len(res.valid)):
+            if not batch["batch_valid"][i]:
+                continue
+            keep = res.valid[i].cpu().numpy()
+            det_boxes.append(res.boxes[i].cpu().numpy()[keep])
+            det_scores.append(res.scores[i].cpu().numpy()[keep])
+            gts.append(batch["gt_boxes"][i][batch["gt_mask"][i]])
+    return coco_map.evaluate_detections(det_boxes, det_scores, gts).to_metrics_dict()
+
+
+def evaluate_recorded(loaded, batches, use_nms: bool):
+    """``evaluate_detector`` over ``batches`` with ``make_inference_step``
+    (pool 1024) on the loaded variables, recording each batch's images on
+    the card, the forward's (boxes, scores) and the tail's result. The
+    launch counts start at 0 here."""
+    step = evaluator.make_inference_step(loaded.model, num_candidates=EVAL_POOL)
+    seen, results = [], []
+
+    def infer(images, context_ids=None):
+        boxes, scores = step(loaded.variables, images, context_ids)
+        seen.append((images.clone(), boxes.clone(), scores.clone()))
+        return boxes, scores
+
+    def recording(real):
+        def tail(*args, **kwargs):
+            res = real(*args, **kwargs)
+            results.append(res)
+            return res
+        return tail
+
+    tail_name = "batched_nms" if use_nms else "detr_topk_select"
+    nms_kernel.nms_keep_launches = 0
+    deformable_kernel.ms_deform_fwd_launches = 0
+    with patched(evaluator, tail_name, recording):
+        metrics = evaluator.evaluate_detector(iter(batches), infer, use_nms=use_nms,
+                                              device=next(loaded.model.parameters()).device)
+    launches = {"nms_keep": nms_kernel.nms_keep_launches,
+                "ms_deform_fwd": deformable_kernel.ms_deform_fwd_launches}
+    return metrics, seen, results, launches
+
+
+def check_evaluation(name, batches, metrics, seen, results, use_nms: bool) -> None:
+    """Each batch's tail bitwise equal to the plain tail on the same forward
+    outputs moved to the CPU, YUV frames to the CPU conversion, and the
+    metrics to ``coco_map`` on the recorded results."""
+    check(len(seen) == len(results) == len(batches), f"{name}: one tail a batch")
+    for n, (batch, (images, boxes, scores), res) in enumerate(zip(batches, seen, results)):
+        boxes, scores = boxes.cpu(), scores.cpu()
+        if use_nms:
+            zeros = torch.zeros(scores.shape, dtype=torch.int32)
+            plain = _batched_nms_plain(
+                boxes, scores, zeros, iou_threshold=IOU, score_threshold=SCORE_THR,
+                max_det=MAX_DET, num_candidates=EVAL_POOL, class_agnostic=False)
+        else:
+            plain = detr_topk_select(boxes, scores, max_det=MAX_DET, score_threshold=SCORE_THR)
+        check(bitwise_equal(tuple(t.cpu() for t in res), plain),
+              f"{name}: batch {n}'s tail == plain tail on the CPU")
+        if "y" in batch:
+            check(torch.equal(images.cpu(), torch.from_numpy(host_rgb(batch))),
+                  f"{name}: YUV batch == CPU yuv420_to_rgb_u8")
+    ref = coco_of(batches, results)
+    got = {k: v for k, v in metrics.items() if not k.startswith("speed_") and k != "n_images"}
+    check(got == ref, f"{name}: metrics == coco_map.evaluate_detections on the results")
+    check(0.0 < metrics["map50"] < 1.0, f"{name}: mAP50 strictly between 0 and 1")
+    check(metrics["n_images"] == sum(int(b["batch_valid"].sum()) for b in batches),
+          f"{name}: padded rows not scored")
+
+
+def phase_evaluate(dev, smi: str) -> dict:
+    """The evaluation path: a YOLO-s run dir written, loaded onto the card
+    and evaluated over four batches of 16 (pool 1024, B1 once a batch; one
+    batch with padded rows, one as YUV420 planes), then one batch each of
+    MoE-YOLO-s (``auto``, solar bins) and RT-DETR r50vd (``use_nms=False``,
+    B4 six times), and the metrics and the runtime written out."""
+    t0 = time.perf_counter()
+    rec = {"phase": "evaluate", "img_hw": [IMG_H, IMG_W], "batch": EVAL_B, "pool": EVAL_POOL,
+           "iou_threshold": IOU, "score_threshold": SCORE_THR, "max_det": MAX_DET,
+           "models": {}, "gpu": smi, **tf32_state()}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        for cfg in EVAL_FAMILIES:
+            family = cfg["family"]
+            t_load = time.perf_counter()
+            loaded = loading.load_detector(write_run_dir(root / "runs", cfg), device=dev)
+            check(next(loaded.model.parameters()).device.type == "cuda", f"{family} on the card")
+            load_s = time.perf_counter() - t_load
+            n = EVAL_BATCHES if family == "yolo" else 1
+            batches = eval_batches(n, EVAL_B, seed=len(rec["models"]) + 20)
+            if family != "moe":
+                for batch in batches:
+                    del batch["solar_bin"]
+            use_nms = family != "rtdetr"
+            infer = evaluator.make_inference_fn(loaded.model, loaded.variables)
+
+            def first_pass(batch):
+                ctx = batch.get("solar_bin")
+                boxes, scores = infer(host_rgb(batch), ctx)
+                with torch.inference_mode():
+                    return (batched_nms(boxes, scores) if use_nms else
+                            detr_topk_select(boxes, scores, max_det=MAX_DET))
+
+            plant_ground_truth(batches, first_pass, seed=5)
+            metrics, seen, results, launches = evaluate_recorded(loaded, batches, use_nms)
+            torch.cuda.synchronize()
+            check_evaluation(family, batches, metrics, seen, results, use_nms)
+            want = {"nms_keep": n if use_nms else 0,
+                    "ms_deform_fwd": RT_LAYERS * n if family == "rtdetr" else 0}
+            check(launches == want, f"{family}: launches {launches}, expected {want}")
+            rec["models"][family] = {
+                "config": cfg, "batches": n, "load_s": load_s, "launches": launches,
+                "metrics": {k: v for k, v in metrics.items() if k != "curves_results"},
+                "model_flops_g": evaluator.model_flops_g(loaded.model, IMG_H, IMG_W),
+            }
+            del loaded, infer, seen, results
+            torch.cuda.empty_cache()
+        metrics_path = artifacts.save_metrics_json(rec["models"]["yolo"]["metrics"],
+                                                   root / "eval" / "metrics.json")
+        runtime = artifacts.collect_runtime_info()
+        meta_json, meta_csv = artifacts.save_run_metadata_artifacts(
+            {"family": "yolo", "variant": "s", "img_h": IMG_H, "img_w": IMG_W, **runtime},
+            root / "eval" / "run_metadata.json", root / "eval" / "run_metadata.csv")
+        check(json.loads(metrics_path.read_text()) == rec["models"]["yolo"]["metrics"],
+              "metrics.json round trip")
+        check(json.loads(meta_json.read_text())["device_kind"] == runtime["device_kind"]
+              and meta_csv.read_text().startswith("metric,value"), "run_metadata written")
+    check(runtime["device_kind"] == torch.cuda.get_device_name(0) and runtime["device_count"] >= 1,
+          "runtime info names the card")
+    check(rec["models"]["yolo"]["model_flops_g"] is not None, "model_flops_g counted")
+    rec["runtime_info"] = runtime
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
 def nms_launch_split(fn, reps: int = 20) -> dict:
     """Device ms of each of the keep mask's two launches (the IoU bitmask,
-    the walk) a call of ``fn``, by ``torch.profiler``."""
+    the walk; above K = 1024 ``mask_tiles_kernel`` and
+    ``walk_global_kernel``) a call of ``fn``, by ``torch.profiler``."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -661,12 +927,14 @@ def nms_launch_split(fn, reps: int = 20) -> dict:
             fn()
         torch.cuda.synchronize()
     split = {"mask_kernel": 0.0, "walk_kernel": 0.0}
+    pattern = {"mask_kernel": re.compile(r"mask_(tiles_)?kernel"),
+               "walk_kernel": re.compile(r"walk_(global_)?kernel")}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
         for name in split:
-            if name in e.key:
+            if pattern[name].search(e.key):
                 split[name] += us / 1e3 / reps
     check(all(ms > 0 for ms in split.values()), "the profiler saw both NMS launches")
     return split
@@ -2673,6 +2941,10 @@ def main() -> int:
     emit(phase_fp32(dev))
     serving, nms_entry = phase_headline(dev, smi)
     emit(serving)
+    evaluation = phase_evaluate(dev, smi)
+    emit(evaluation)
+    launches_on_eval = {family: m["launches"] for family, m in evaluation["models"].items()}
+    nms_entry["evaluate_launches"] = {f: c["nms_keep"] for f, c in launches_on_eval.items()}
 
     cases = phase_deform_kernel(dev)
     _, fp32_err = phase_rtdetr_fp32(dev)
@@ -2695,6 +2967,7 @@ def main() -> int:
         "training_queries": RT_TRAIN_Q, "training_ms": fwd_train["kernel_ms"],
         "training_plain_ms": fwd_train["plain_ms"], "training_bound_ms": fwd_train["bound_ms"],
         "training_library_ms": fwd_train["library_ms"],
+        "evaluate_launches": launches_on_eval["rtdetr"]["ms_deform_fwd"],
     }
     bwd_entry = {
         "name": "ms_deform_bwd", "route": "cuda",

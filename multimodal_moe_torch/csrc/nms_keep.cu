@@ -13,7 +13,7 @@
 // Beyond that bound sits the greedy walk, a chain of K steps of which each
 // needs the outcome of every step before it.
 //
-// What the design does about it: two launches.
+// What the design does about it, for K <= kSmemMaxK = 1024: two launches.
 //   Launch 1, the IoU bitmask (mask_kernel): a grid of C CTAs an image (C a
 //     power of two chosen by the wrapper so that the grid fills the SMs
 //     twice over), each with the image's boxes in shared memory. Work comes
@@ -60,12 +60,34 @@
 //     IoU +0 or NaN, so its bit is 0); chip_smoke.py times that build
 //     against this one. The wrapper loads the default build.
 //
+// Pools above kSmemMaxK = 1024 (any K; device memory for the scratch is
+// the only limit): the same units, bits, mask layout and walk order, in two
+// other launches, because the whole image no longer fits one CTA's shared
+// memory (the packed mask is 267 KB at K = 2048, the boxes 433 KB at
+// K = 18,018).
+//   Launch 1 (mask_tiles_kernel): a warp keeps only its unit's column tile
+//     (32 boxes, areas and classes: 768 bytes) in shared memory and its
+//     lanes' two rows in registers, each loaded from device memory.
+//   Launch 2 (walk_global_kernel): one CTA an image walks the mask where
+//     launch 1 left it, in device memory (20 MB an image at K = 18,018,
+//     mostly served from L2). Several warps, not one: thread t of the CTA
+//     owns the "removed" words of groups t, t + 256, ... in shared memory
+//     (4 bytes a group). At step g the owner of group g loads its 32
+//     diagonal rows and resolves its candidates, publishes the kept bits
+//     in shared memory (double-buffered, one __syncthreads a step), and
+//     every thread ORs those rows' words into its own later groups with
+//     eight 16-byte loads a group.
+//   Scratch: group_offset and every offset into the scratch are 64-bit
+//     (5.1 M words an image at K = 18,018: B = 128 passes 2^31 bytes).
+//   A simple design, not tuned: at small B the mask launch leaves SMs idle,
+//   and the walk waits on a device-memory load at every step.
+//
 // Exactness: the IoU is evaluated in the order of ops/boxes.py
 // pairwise_iou, inter / (((area_i + area_j) - inter) + 1e-7f), with
 // NaN-propagating min, max and clamp (PTX max.NaN / min.NaN), as
 // torch.maximum, torch.minimum and clamp_min do. The file is compiled with
 // --fmad=false so that no multiply-add is contracted. The division is IEEE
-// (no fast math). K <= 1024: one walker lane a group.
+// (no fast math). Both designs give the same bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,12 +100,17 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxK = 1024;
+// The largest pool whose packed mask a walk CTA keeps in shared memory.
+constexpr int kSmemMaxK = 1024;
+// Shared memory a Hopper CTA can opt in to.
+constexpr size_t kMaxSmemBytes = 232448;
 constexpr unsigned kFull = 0xffffffffu;
 
 // Offset, in 32-bit words, of group g's rows in the mask (rows 0..32g+31);
 // group_offset(G) is the mask's size.
-__host__ __device__ __forceinline__ int group_offset(int g) { return 16 * g * (g + 1) + 4 * g; }
+__host__ __device__ __forceinline__ long long group_offset(long long g) {
+  return 16LL * g * (g + 1) + 4LL * g;
+}
 
 // Shared memory of a launch-1 CTA: boxes, areas and classes, padded to
 // 32(G+1) entries.
@@ -188,21 +215,17 @@ __device__ __forceinline__ void pair_bits(float4 a, float2 aci, float4 c, float2
   }
 }
 
-// One unit: rows 64 r2 + lane and 64 r2 + 32 + lane against columns
-// 32g..32g+31. dst points at group g's words; row i's word goes to dst[i]
-// for the rows group g keeps (i < 32(g+1)). The box arrays are padded to
-// 32(G+1) entries; c_lo and c_hi are the margin filter's factors (NaN where
-// the filter is off).
+// One unit: rows i0 = 64 r2 + lane and i1 = i0 + 32 (boxes a0, a1; areas
+// and class bits ac0, ac1) against columns 32g..32g+31 (col, col_ac).
+// dst points at group g's words; row i's word goes to dst[i] for the rows
+// group g keeps (i < 32(g+1)). Boxes past K are zeros; c_lo and c_hi are
+// the margin filter's factors (NaN where the filter is off).
 template <bool kAgnostic, bool kZeroHits>
 __device__ __forceinline__ void unit_words(int g, int r2, int K, float t, float c_lo, float c_hi,
-                                           const float4* __restrict__ box,
-                                           const float2* __restrict__ ac,
+                                           float4 a0, float2 ac0, float4 a1, float2 ac1,
+                                           const float4* col, const float2* col_ac,
                                            uint32_t* dst, int lane) {
   const int i0 = 64 * r2 + lane, i1 = i0 + 32;
-  const float4 a0 = box[i0], a1 = box[i1];
-  const float2 ac0 = ac[i0], ac1 = ac[i1];
-  const float4* col = box + 32 * g;
-  const float2* col_ac = ac + 32 * g;
   uint32_t word0 = 0u, need0 = 0u, word1 = 0u, need1 = 0u;
 #pragma unroll
   for (int jj = 0; jj < 32; ++jj) {
@@ -303,8 +326,59 @@ mask_kernel(const float4* __restrict__ boxes, const int* __restrict__ classes,
   for (int u = u0 + warp; u < u1; u += kWarps) {
     int g, r2;
     unit_of(u, g, r2);
-    unit_words<kAgnostic, kZeroHits>(g, r2, K, t, c_lo, c_hi, sbox, sac,
+    const int i0 = 64 * r2 + lane;
+    unit_words<kAgnostic, kZeroHits>(g, r2, K, t, c_lo, c_hi, sbox[i0], sac[i0], sbox[i0 + 32],
+                                     sac[i0 + 32], sbox + 32 * g, sac + 32 * g,
                                      mask + group_offset(g), lane);
+  }
+}
+
+// Box j of the image at base, zeros past K, and its area and class bits.
+__device__ __forceinline__ float4 box_at(const float4* __restrict__ boxes, size_t base, int j,
+                                         int K) {
+  return j < K ? boxes[base + j] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+__device__ __forceinline__ float2 area_class_at(const int* __restrict__ classes, size_t base,
+                                                int j, int K, float4 bx) {
+  return make_float2(area_of(bx), j < K ? __int_as_float(classes[base + j]) : 0.0f);
+}
+
+// Launch 1 for K > kSmemMaxK: the units of mask_kernel, with only the
+// unit's column tile in shared memory (one tile a warp) and the rows in
+// registers. n_units(G) stays below 2^31 up to K = 2.9 M, whose mask would
+// take a terabyte an image.
+template <bool kAgnostic, bool kZeroHits>
+__global__ void __launch_bounds__(kThreads)
+mask_tiles_kernel(const float4* __restrict__ boxes, const int* __restrict__ classes,
+                  uint32_t* __restrict__ scratch, int K, float t) {
+  __shared__ float4 tile_box[kWarps][32];
+  __shared__ float2 tile_ac[kWarps][32];
+  const int C = gridDim.x, rank = blockIdx.x, b = blockIdx.y;
+  const int G = (K + 31) / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float c_lo, c_hi;
+  filter_factors(t, kZeroHits, c_lo, c_hi);
+
+  const size_t base = (size_t)b * K;
+  uint32_t* mask = scratch + (size_t)b * group_offset(G);
+  const int units = n_units(G);
+  const int u0 = (int)((long long)units * rank / C);
+  const int u1 = (int)((long long)units * (rank + 1) / C);
+  for (int u = u0 + warp; u < u1; u += kWarps) {
+    int g, r2;
+    unit_of(u, g, r2);
+    const int j = 32 * g + lane, i0 = 64 * r2 + lane, i1 = i0 + 32;
+    const float4 c = box_at(boxes, base, j, K);
+    const float4 a0 = box_at(boxes, base, i0, K), a1 = box_at(boxes, base, i1, K);
+    tile_box[warp][lane] = c;
+    tile_ac[warp][lane] = area_class_at(classes, base, j, K, c);
+    __syncwarp();
+    unit_words<kAgnostic, kZeroHits>(g, r2, K, t, c_lo, c_hi, a0,
+                                     area_class_at(classes, base, i0, K, a0), a1,
+                                     area_class_at(classes, base, i1, K, a1), tile_box[warp],
+                                     tile_ac[warp], mask + group_offset(g), lane);
+    __syncwarp();  // the tile is read before the next unit overwrites it
   }
 }
 
@@ -316,14 +390,14 @@ walk_kernel(const int* __restrict__ valid, const uint32_t* __restrict__ scratch,
   const int b = blockIdx.x;
   const int G = (K + 31) / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int words = group_offset(G);
+  const long long words = group_offset(G);
   uint32_t* mask = reinterpret_cast<uint32_t*>(smem_raw);  // words
   uint32_t* vbits = mask + words;                          // 32
   uint32_t* remw = vbits + 32;                             // 32
 
   const uint4* src = reinterpret_cast<const uint4*>(scratch + (size_t)b * words);
   uint4* dst = reinterpret_cast<uint4*>(mask);
-  for (int w = threadIdx.x; w < words / 4; w += kThreads) dst[w] = src[w];
+  for (int w = threadIdx.x; w < (int)(words / 4); w += kThreads) dst[w] = src[w];
   const size_t base = (size_t)b * K;
   for (int g = warp; g < G; g += kWarps) {
     const int j = 32 * g + lane;
@@ -341,6 +415,74 @@ walk_kernel(const int* __restrict__ valid, const uint32_t* __restrict__ scratch,
   }
 }
 
+// Launch 2 for K > kSmemMaxK: image blockIdx.x's walk on its mask in
+// scratch. Thread t owns the removed words of groups t, t + kThreads, ...
+__global__ void __launch_bounds__(kThreads)
+walk_global_kernel(const int* __restrict__ valid, const uint32_t* __restrict__ scratch,
+                   int* __restrict__ keep, int K) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int b = blockIdx.x;
+  const int G = (K + 31) / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t* remw = reinterpret_cast<uint32_t*>(smem_raw);  // G
+  uint32_t* keptw = remw + G;                              // 2: step g's in keptw[g & 1]
+  const uint32_t* mask = scratch + (size_t)b * group_offset(G);
+  const size_t base = (size_t)b * K;
+  for (int g = warp; g < G; g += kWarps) {
+    const int j = 32 * g + lane;
+    const unsigned bits = __ballot_sync(kFull, j < K && valid[base + min(j, K - 1)] != 0);
+    if (lane == 0) remw[g] = ~bits;
+  }
+  __syncthreads();
+
+  for (int g = 0; g < G; ++g) {
+    // Group g's owner updated remw[g] itself at every earlier step.
+    if (threadIdx.x == g % kThreads) {
+      const uint4* row = reinterpret_cast<const uint4*>(mask + group_offset(g) + 32 * g);
+      uint32_t diag[32];
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        const uint4 v = row[p];
+        diag[4 * p] = v.x;
+        diag[4 * p + 1] = v.y;
+        diag[4 * p + 2] = v.z;
+        diag[4 * p + 3] = v.w;
+      }
+      uint32_t rem = remw[g];
+#pragma unroll
+      for (int q = 0; q < 32; ++q) {
+        if (!((rem >> q) & 1u)) rem |= diag[q];
+      }
+      remw[g] = rem;
+      keptw[g & 1] = ~rem;
+    }
+    __syncthreads();
+    const uint32_t kept = keptw[g & 1];
+    if (kept == 0u) continue;
+    for (int h = threadIdx.x; h < G; h += kThreads) {
+      if (h <= g) continue;
+      const uint4* col = reinterpret_cast<const uint4*>(mask + group_offset(h) + 32 * g);
+      uint4 v[8];
+#pragma unroll
+      for (int p = 0; p < 8; ++p) v[p] = col[p];
+      uint32_t add = 0u;
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        const uint32_t k4 = kept >> (4 * p);
+        add |= (k4 & 1u) ? v[p].x : 0u;
+        add |= (k4 & 2u) ? v[p].y : 0u;
+        add |= (k4 & 4u) ? v[p].z : 0u;
+        add |= (k4 & 8u) ? v[p].w : 0u;
+      }
+      remw[h] |= add;
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < K; j += kThreads) {
+    keep[base + j] = ((remw[j >> 5] >> (j & 31)) & 1u) ? 0 : 1;
+  }
+}
+
 typedef void (*MaskFn)(const float4*, const int*, uint32_t*, int, float);
 
 MaskFn mask_kernel_for(bool agnostic, bool zero_hits) {
@@ -348,37 +490,62 @@ MaskFn mask_kernel_for(bool agnostic, bool zero_hits) {
   return zero_hits ? mask_kernel<false, true> : mask_kernel<false, false>;
 }
 
+MaskFn mask_tiles_kernel_for(bool agnostic, bool zero_hits) {
+  if (agnostic) return zero_hits ? mask_tiles_kernel<true, true> : mask_tiles_kernel<true, false>;
+  return zero_hits ? mask_tiles_kernel<false, true> : mask_tiles_kernel<false, false>;
+}
+
 }  // namespace
 
-// The largest pool the kernel takes.
-extern "C" int nms_max_k() { return kMaxK; }
-
 // 32-bit words of scratch one image needs at pool K: its packed mask.
-extern "C" int nms_scratch_words(int K) { return group_offset((K + 31) / 32); }
+extern "C" long long nms_scratch_words(int K) { return group_offset((K + 31) / 32); }
 
 // boxes (B, K, 4) f32, valid (B, K) i32, classes (B, K) i32 -> keep (B, K) i32,
-// all contiguous on the device; scratch holds B * nms_scratch_words(K)
-// 32-bit words. `ctas` CTAs an image compute the mask. Returns the first
+// all contiguous on the device, any K >= 1; scratch holds
+// B * nms_scratch_words(K) 32-bit words. `ctas` CTAs an image compute the
+// mask. Returns the first
 // failing cudaError_t, or cudaSuccess.
 extern "C" int nms_keep_launch(const void* boxes, const void* valid, const void* classes,
                                void* keep, void* scratch, int B, int K, float iou_threshold,
                                int class_agnostic, int ctas, void* stream) {
   if (B <= 0 || K <= 0) return (int)cudaSuccess;
-  if (K > kMaxK || ctas < 1) return (int)cudaErrorInvalidValue;
+  if (ctas < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (K > kSmemMaxK) {
+    // The walk's removed words: 4 bytes a group (above 48 KB only past
+    // K = 393,000, whose mask would take 19 GB an image).
+    const size_t walk_bytes = ((size_t)(K + 31) / 32 + 2) * 4;
+    if (walk_bytes > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+    if (walk_bytes > 48 * 1024) {
+      err = cudaFuncSetAttribute(walk_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)walk_bytes);
+      if (err != cudaSuccess) return (int)err;
+    }
+    mask_tiles_kernel_for(class_agnostic != 0, 0.0f >= iou_threshold)
+        <<<dim3((unsigned)ctas, (unsigned)B), kThreads, 0, s>>>(
+            static_cast<const float4*>(boxes), static_cast<const int*>(classes),
+            static_cast<uint32_t*>(scratch), K, iou_threshold);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    walk_global_kernel<<<B, kThreads, walk_bytes, s>>>(
+        static_cast<const int*>(valid), static_cast<const uint32_t*>(scratch),
+        static_cast<int*>(keep), K);
+    return (int)cudaGetLastError();
+  }
   // The walk's shared memory exceeds 48 KB from K = 512 on: allowed once
   // per device.
   static bool walk_ready[64] = {};
   int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
   if (device >= 64) return (int)cudaErrorInvalidDevice;
   if (!walk_ready[device]) {
     err = cudaFuncSetAttribute(walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)walk_smem_bytes(kMaxK));
+                               (int)walk_smem_bytes(kSmemMaxK));
     if (err != cudaSuccess) return (int)err;
     walk_ready[device] = true;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   mask_kernel_for(class_agnostic != 0, 0.0f >= iou_threshold)
       <<<dim3((unsigned)ctas, (unsigned)B), kThreads, mask_smem_bytes(K), s>>>(
           static_cast<const float4*>(boxes), static_cast<const int*>(classes),

@@ -9,10 +9,11 @@ alive removes every later candidate whose IoU with it is >= the threshold
 
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version.
 There is no fallback from one to the other: a failed build or launch
-raises. The kernel is two launches: :func:`ctas_per_image` CTAs an image
-write the IoU bitmask into a scratch buffer (as many words an image as the
-library's ``nms_scratch_words`` says), then one CTA an image walks it.
-:func:`pair_suppresses` is the kernel's per-pair decision rule (its
+raises. The kernel is two launches at any pool K: :func:`ctas_per_image`
+CTAs an image write the IoU bitmask into a scratch buffer (as many words an
+image as the library's ``nms_scratch_words`` says, a 64-bit count), then
+one CTA an image walks it (in shared memory up to K = 1024, in the scratch
+above). :func:`pair_suppresses` is the kernel's per-pair decision rule (its
 zero-overlap shortcut and margin filter included) in plain PyTorch.
 """
 
@@ -37,10 +38,8 @@ def _lib(defines: "tuple[str, ...]" = ()):
     from .._build import load
 
     lib = load("nms_keep", defines)
-    lib.nms_max_k.argtypes = []
-    lib.nms_max_k.restype = ctypes.c_int
     lib.nms_scratch_words.argtypes = [ctypes.c_int]
-    lib.nms_scratch_words.restype = ctypes.c_int
+    lib.nms_scratch_words.restype = ctypes.c_longlong
     lib.nms_keep_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -164,10 +163,9 @@ def nms_keep_mask(
 
 def _launch(lib, boxes, valid, classes, iou_threshold, class_agnostic) -> torch.Tensor:
     """Launch ``lib``'s kernel on checked, non-empty CUDA tensors; raise on
-    failure."""
+    failure. The scratch is K²/8 bytes an image (20 MB at K = 18,018); where
+    the card cannot hold it, ``torch.empty`` raises its out-of-memory error."""
     b, k, _ = boxes.shape
-    if k > lib.nms_max_k():
-        raise ValueError(f"pool of {k} candidates: the kernel takes K <= {lib.nms_max_k()}")
     keep = torch.empty((b, k), dtype=torch.int32, device=boxes.device)
     scratch = torch.empty(b * lib.nms_scratch_words(k), dtype=torch.int32,
                           device=boxes.device)

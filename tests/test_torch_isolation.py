@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``multimodal_moe_torch`` (nor
 ``chip_smoke.py``) imports ``jax``, ``flax``, ``optax``, ``orbax`` or
-``multimodal_moe_tpu``; the training modules are among those imported."""
+``multimodal_moe_tpu``; the training and evaluation modules are among those
+imported."""
 
 import ast
 import subprocess
@@ -9,10 +10,14 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "multimodal_moe_tpu")
-# Modules that must be among those the child imports (the training modules).
+# Modules that must be among those the child imports (the training and
+# the evaluation modules).
 REQUIRED = ("multimodal_moe_torch.losses.hungarian", "multimodal_moe_torch.ops.assignment",
             "multimodal_moe_torch.ops.augment", "multimodal_moe_torch.train.state",
-            "multimodal_moe_torch.train.detection")
+            "multimodal_moe_torch.train.detection", "multimodal_moe_torch.train.evaluator",
+            "multimodal_moe_torch.ops.coco_map", "multimodal_moe_torch.ops.preprocess",
+            "multimodal_moe_torch.loading", "multimodal_moe_torch.train.artifacts",
+            "multimodal_moe_torch.utils.profiler")
 
 _CHILD = """
 import importlib, pkgutil, sys

@@ -115,6 +115,16 @@ class TestAgainstJaxScan:
         assert not got.valid[1].any() and got.valid[0].any()
         _assert_same(got, ref)
 
+    def test_pool_above_the_shared_memory_walk(self):
+        """K = 2048, a pool the card takes since the kernel has no limit on K
+        (ROADMAP C1): JAX's scan and the port agree on it."""
+        boxes, scores, classes = _random_batch(b=2, n=2048 + 64, seed=17, ties=True,
+                                               num_classes=3)
+        got, ref = _both(boxes, scores, classes, iou_threshold=0.7, max_det=300,
+                         num_candidates=2048)
+        assert int(got.valid.sum()) > 300
+        _assert_same(got, ref)
+
     def test_fewer_boxes_than_candidates(self):
         boxes, scores, _ = _random_batch(b=2, n=40, seed=7)
         _assert_same(*_both(boxes, scores, max_det=30, num_candidates=1024))
@@ -267,6 +277,11 @@ CARD_CASES = [
     (8, 512, False, "non_finite", 0.7),
     (8, 512, False, "ties", 0.0),
     (8, 512, True, "ties", 1.0),
+    # Above the shared-memory walk's K = 1024: the kernel's other launches.
+    (16, 1025, False, "ties", 0.7),
+    (16, 2048, False, "ties", 0.7),
+    (16, 4096, False, "ties", 0.7),
+    (2, 18018, False, "ties", 0.7),
 ]
 
 
@@ -299,3 +314,25 @@ def test_cuda_kernel_matches_plain(b, k, agnostic, kind, t):
     keep = nms_kernel.nms_keep_mask(*args, iou_threshold=t, class_agnostic=agnostic)
     plain = nms_kernel._nms_keep_mask_plain(*args, iou_threshold=t, class_agnostic=agnostic)
     assert torch.equal(keep, plain)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_scratch_past_2gb():
+    """B = 128 at K = 18,018 needs 2.6 GB of scratch, so the last images'
+    masks lie past 2**31 bytes: their keep masks equal the kernel's and the
+    plain version's on those images alone."""
+    dev = require_cuda()
+    b, k = 128, 18018
+    boxes, scores, classes = _random_batch(b=b, n=k, seed=18, ties=True, num_classes=3)
+    t_ = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    top_boxes, top_scores, top_classes = _preselect(
+        t_(boxes), t_(scores), t_(classes), score_threshold=0.001, num_candidates=k)
+    args = (top_boxes.contiguous(), (top_scores > NEG_INF / 2).to(torch.int32),
+            top_classes.contiguous())
+    kw = dict(iou_threshold=0.7, class_agnostic=False)
+    keep = nms_kernel.nms_keep_mask(*args, **kw)
+    assert b * nms_kernel._lib().nms_scratch_words(k) * 4 > 2**31
+    for i in (b - 1, b - 2):
+        one = tuple(a[i:i + 1].contiguous() for a in args)
+        assert torch.equal(keep[i:i + 1], nms_kernel.nms_keep_mask(*one, **kw))
+        assert torch.equal(keep[i:i + 1], nms_kernel._nms_keep_mask_plain(*one, **kw))

@@ -24,7 +24,8 @@ from multimodal_moe_torch.ops.boxes import pairwise_iou
 
 SOURCE = Path(nms_kernel.__file__).resolve().parent.parent / "csrc" / "nms_keep.cu"
 NAN = float("nan")
-MAX_K = 1024  # the kernel's design range: one walker lane for each 32 candidates
+SMEM_MAX_K = 1024  # the largest pool whose mask the walk keeps in shared memory
+HEADLINE_K = 18018  # YOLO-s's full anchor set at 704x1248: the largest pool JAX takes there
 
 
 def _group_offset(g: int) -> int:
@@ -134,7 +135,10 @@ def _simulate_kernel(boxes, valid, classes, t, agnostic, ctas):
     shares of the 64-row x 32-column units and write each row's 32-bit word
     into the packed mask; the walk resolves group g on lane g's diagonal
     rows, then ORs group g's kept rows into every later group. Words never
-    written stay garbage, as in shared memory."""
+    written stay garbage, as in shared memory. Above K = 1024 the kernel
+    computes the same units and words from per-warp column tiles, and its
+    walk makes the same steps with group g's word owned by thread g % 256
+    of the CTA instead of lane g, so this replay holds for both."""
     k = boxes.shape[0]
     groups = (k + 31) // 32
     mask = [0xDEADBEEF] * _group_offset(groups)
@@ -157,18 +161,18 @@ def _simulate_kernel(boxes, valid, classes, t, agnostic, ctas):
     full = 0xFFFFFFFF
     vbits = [sum(1 << q for q in range(32) if 32 * g + q < k and valid[32 * g + q])
              for g in range(groups)]
-    rem = [(~vbits[lane] & full) if lane < groups else full for lane in range(32)]
-    diag = [[mask[_group_offset(lane) + 32 * lane + q] for q in range(32)]
-            if lane < groups else [0] * 32 for lane in range(32)]
+    # rem[g]: group g's removed word (lane g's up to K = 1024, thread g % 256's above)
+    rem = [~vbits[g] & full for g in range(groups)]
+    diag = [[mask[_group_offset(g) + 32 * g + q] for q in range(32)] for g in range(groups)]
     for g in range(groups):
         for q in range(32):
             if not (rem[g] >> q) & 1:
                 rem[g] |= diag[g][q]
         kept = ~rem[g] & full
-        for lane in range(g + 1, groups):
+        for h in range(g + 1, groups):
             for q in range(32):
                 if (kept >> q) & 1:
-                    rem[lane] |= mask[_group_offset(lane) + 32 * g + q]
+                    rem[h] |= mask[_group_offset(h) + 32 * g + q]
     return torch.tensor([0 if (rem[j >> 5] >> (j & 31)) & 1 else 1 for j in range(k)],
                         dtype=torch.int32)
 
@@ -182,6 +186,7 @@ def _simulate_kernel(boxes, valid, classes, t, agnostic, ctas):
     (160, 2, "non_finite", False, 0.3),
     (97, 4, "random", True, 0.0),
     (128, 2, "identical", False, 1.0),
+    (1100, 32, "random", False, 0.7),
 ])
 def test_blocked_walk_matches_plain(k, ctas, kind, agnostic, t):
     rng = np.random.default_rng(k)
@@ -221,11 +226,18 @@ def test_mask_layout_is_free_of_bank_conflicts():
 
 def test_layout_constants_match_the_source():
     """The source's constants that this file's models copy: the mask layout
-    the replay uses and the margin factors ``pair_suppresses`` uses. (On the
-    card, ``test_library_layout_matches_the_model`` asks the library.)"""
+    the replay uses, 64-bit, and the margin factors ``pair_suppresses`` uses.
+    (On the card, ``test_library_layout_matches_the_model`` asks the
+    library.) At K = 18,018 an image's mask is 5.1 M words, so B = 128
+    passes 2**31 bytes: the scratch count and every offset into it must be
+    64-bit."""
     src = SOURCE.read_text()
-    assert re.search(r"group_offset\(int g\) \{ return 16 \* g \* \(g \+ 1\) \+ 4 \* g; \}", src)
-    assert re.search(r"constexpr int kMaxK = (\d+);", src).group(1) == str(MAX_K)
+    assert re.search(r"long long group_offset\(long long g\) \{\s*"
+                     r"return 16LL \* g \* \(g \+ 1\) \+ 4LL \* g;\s*\}", src)
+    assert 'extern "C" long long nms_scratch_words(int K)' in src
+    assert re.search(r"constexpr int kSmemMaxK = (\d+);", src).group(1) == str(SMEM_MAX_K)
+    words = _group_offset((HEADLINE_K + 31) // 32)
+    assert words == 5_100_816 and 128 * words * 4 > 2**31
     assert "return (size_t)(G + 1) * 32 * (16 + 8);" in src
     assert "return (size_t)group_offset(G) * 4 + 64 * 4;" in src
     assert "t * (1.0f - 0x1p-20f)" in src and "t * (1.0f + 0x1p-20f)" in src
@@ -234,17 +246,23 @@ def test_layout_constants_match_the_source():
     # opts in, within the 227 KB of one Hopper CTA.
     assert 33 * 32 * 24 <= 48 * 1024
     assert _group_offset(32) * 4 + 64 * 4 <= 232448
+    # Above the shared-memory range a warp keeps one 768-byte column tile and
+    # the walk 4 bytes a group (+2 words): within 48 KB up to K = 393,000.
+    assert "__shared__ float4 tile_box[kWarps][32];" in src
+    assert "((size_t)(K + 31) / 32 + 2) * 4" in src
+    assert 8 * 32 * 24 <= 48 * 1024 and ((HEADLINE_K + 31) // 32 + 2) * 4 <= 48 * 1024
 
 
 @pytest.mark.cuda
 def test_library_layout_matches_the_model():
-    """The library's scratch size is the model's mask size at every pool,
-    which pins ``_group_offset`` at every group boundary."""
+    """The library's scratch size is the model's mask size at every pool up
+    to YOLO-s's full anchor set, which pins ``_group_offset`` at every group
+    boundary, and it is a 64-bit count: past 2**31 words it is not cut."""
     require_cuda()
     lib = nms_kernel._lib()
-    assert lib.nms_max_k() == MAX_K
-    for k in range(1, MAX_K + 1):
+    for k in range(1, HEADLINE_K + 1):
         assert lib.nms_scratch_words(k) == _group_offset((k + 31) // 32)
+    assert lib.nms_scratch_words(400_000) == _group_offset(12_500) > 2**31
 
 
 @pytest.mark.parametrize("b,expected", [(1, 32), (16, 32), (32, 16), (64, 8), (128, 4), (132, 2),
@@ -270,9 +288,11 @@ def test_units_cover_the_upper_triangle_once():
 
 
 def test_cpu_wrapper_takes_pools_beyond_the_kernel_range():
-    """The card's K <= MAX_K is the kernel's; a CPU tensor takes the plain
-    version at any pool."""
-    boxes = torch.zeros(1, MAX_K + 1, 4)
-    ints = torch.zeros(1, MAX_K + 1, dtype=torch.int32)
+    """Past the shared-memory walk's range the card takes the kernel's
+    other two launches (``tests/test_torch_nms.py``'s card cases); a CPU
+    tensor takes the plain version at any pool."""
+    boxes = torch.zeros(1, SMEM_MAX_K + 1, 4)
+    ints = torch.zeros(1, SMEM_MAX_K + 1, dtype=torch.int32)
     assert nms_kernel.nms_keep_mask(boxes, ints, ints, iou_threshold=0.7,
-                                    class_agnostic=True).shape == (1, MAX_K + 1)
+                                    class_agnostic=True).shape == (1, SMEM_MAX_K + 1)
+    assert not hasattr(nms_kernel, "nms_max_k")

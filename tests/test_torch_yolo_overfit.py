@@ -3,10 +3,10 @@ trained with the port's ``yolo_loss`` on the same synthetic set (8 frames
 of 64×128, 1–3 bright rectangles each) for 150 Adam steps at lr 2e-3 on
 the CPU, in train mode (batch statistics), then evaluated in eval mode
 through the port's ``batched_nms`` (IoU 0.7, score threshold 0.05,
-max_det 20) and the JAX package's own ``evaluate_detections`` (COCO mAP,
-numpy). The gate is the JAX test's: the loss halves, mAP50 > 0.6 and
-recall > 0.6. This exercises assignment → losses → optimizer → decode →
-NMS → mAP end to end.
+max_det 20) and the port's own copy of ``evaluate_detections`` (COCO mAP,
+numpy), which must give the JAX package's metrics exactly. The gate is the
+JAX test's: the loss halves, mAP50 > 0.6 and recall > 0.6. This exercises
+assignment → losses → optimizer → decode → NMS → mAP end to end.
 """
 
 import numpy as np
@@ -14,8 +14,9 @@ import torch
 
 from multimodal_moe_torch.losses.tal import yolo_loss
 from multimodal_moe_torch.models.yolo import YoloDetector
+from multimodal_moe_torch.ops.coco_map import evaluate_detections
 from multimodal_moe_torch.ops.nms import batched_nms
-from multimodal_moe_tpu.ops.coco_map import evaluate_detections
+from multimodal_moe_tpu.ops import coco_map as jax_coco_map
 from test_learnability import H, N_IMG, W, _make_dataset
 
 
@@ -58,6 +59,8 @@ def _overfit():
         det_scores.append(nms.scores[i].numpy()[keep])
         gts.append(gt_boxes[i].numpy()[gt_mask[i].numpy()])
     m = evaluate_detections(det_boxes, det_scores, gts, compute_curves=False)
+    ref = jax_coco_map.evaluate_detections(det_boxes, det_scores, gts, compute_curves=False)
+    assert m.to_metrics_dict() == ref.to_metrics_dict()
     assert (H, W) == tuple(images.shape[1:3])
     assert m.map50 > 0.6, f"map50={m.map50} (ap_per_iou={m.ap_per_iou})"
     assert m.recall > 0.6, f"recall={m.recall}"
