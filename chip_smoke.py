@@ -198,6 +198,28 @@ Phases (each prints one JSON line):
                learning check at B=4 on one fixed batch.
 17. yolo_train -- the B=16 YOLO-s step of scripts/train_yolo.py with the
                trainer's default yolo_loss: step ms, img/s, peak memory, split.
+18. int8    -- int8 PTQ serving (random weights from seed 0, absmax
+               calibration on 2 seeded batches of 4 frames, 2 of 2 for
+               RT-DETR, the default bf16 epilogue), 704x1248: ``int8_conv2d``
+               (``torch._int_mm``) bitwise against its float64 version at every
+               distinct conv shape of a YOLO-s B=2 forward, on that forward's
+               codes (the class prediction's N = 1 among them), and each shape
+               timed at B=32 (whole conv, im2col, ``_int_mm``) beside the bf16
+               cuDNN conv; YOLO-s card against CPU at B=1 in the ``silu`` and
+               ``bf16`` epilogues (the first conv's int32 accumulator bitwise,
+               the share of output codes one apart per requantizing conv, logits
+               20x closer card-to-CPU than int8-to-fp); the YOLO-s and
+               MoE-YOLO-s (E=4, solar bins, the w8a8 sweep) B=128 headlines
+               (pool 512, full tail: step, forward and tail ms, img/s, peak
+               memory beside the same run's bf16 headline, B1 once a step, the
+               kernel tail bitwise against the plain tail, the forward's im2col /
+               ``_int_mm`` / epilogue device time from ``torch.profiler``);
+               RT-DETR r50vd int8 at B=16 (step ms, img/s, peak memory, B4 six
+               times a step and on decoder layer 0's own inputs against its plain
+               version); ``evaluate_detector`` on a ``loading.quantize_loaded``
+               YOLO-s run dir (the npz written by the first load, reused by the
+               second; four batches of 16, each tail bitwise against the plain
+               tail on the CPU, B1 once a batch, 0 < mAP50 < 1).
 
 """
 
@@ -208,6 +230,7 @@ import copy
 import ctypes
 import functools
 import json
+import os
 import re
 import struct
 import subprocess
@@ -225,11 +248,14 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from multimodal_moe_torch import _build, loading  # noqa: E402
+from multimodal_moe_torch import _build, loading, quant  # noqa: E402
+from multimodal_moe_torch._device import model_device  # noqa: E402
 from multimodal_moe_torch.losses import hungarian as hungarian_module  # noqa: E402
 from multimodal_moe_torch.losses import tal as tal_module  # noqa: E402
+from multimodal_moe_torch.models import layers as layers_module  # noqa: E402
 from multimodal_moe_torch.models import moe as moe_module  # noqa: E402
 from multimodal_moe_torch.models import rtdetr as rtdetr_module  # noqa: E402
+from multimodal_moe_torch.models import yolo as yolo_module  # noqa: E402
 from multimodal_moe_torch.models.moe_yolo import MoEYoloDetector, moe_yolo_loss  # noqa: E402
 from multimodal_moe_torch.models.rtdetr import (  # noqa: E402
     RTDETRDetector,
@@ -241,6 +267,7 @@ from multimodal_moe_torch.ops import (  # noqa: E402
     coco_map,
     deformable_kernel,
     gmm_kernel,
+    int8_conv,
     moe_kernels,
     nms_kernel,
     preprocess,
@@ -818,7 +845,7 @@ def evaluate_recorded(loaded, batches, use_nms: bool):
     deformable_kernel.ms_deform_fwd_launches = 0
     with patched(evaluator, tail_name, recording):
         metrics = evaluator.evaluate_detector(iter(batches), infer, use_nms=use_nms,
-                                              device=next(loaded.model.parameters()).device)
+                                              device=model_device(loaded.model))
     launches = {"nms_keep": nms_kernel.nms_keep_launches,
                 "ms_deform_fwd": deformable_kernel.ms_deform_fwd_launches}
     return metrics, seen, results, launches
@@ -2923,6 +2950,437 @@ def phase_yolo_train(dev, smi: str) -> dict:
     return rec
 
 
+# --------------------------------------------------------------------------
+# int8 PTQ serving: calibration, folding and the int8 forwards on the card
+# --------------------------------------------------------------------------
+
+INT8_CALIB_BATCHES, INT8_CALIB_B = 2, 4   # seeded calibration frames (RT-DETR: B=2)
+INT8_B = 128                              # the headlines (MoE: MOE_B)
+INT8_CONV_TIME_B = 32                     # the per-shape conv timings
+# The card's int8 logits must be at least this many times closer to the
+# CPU's (mean |d|) than the CPU's int8 logits are to its fp logits, the
+# relation tests/_torch_int8.py holds the port to against JAX.
+INT8_CLOSER = 20.0
+# Codes one apart allowed between the card's and the CPU's epilogue on the
+# same int32 accumulators (their sigmoids may round one ulp apart).
+INT8_LOCAL_SHARE = 1e-4
+INT8_RANGES = (("int8.im2col", int8_conv, "im2col"), ("int8.int_mm", int8_conv, "int_mm"),
+               ("int8.int_mm", moe_module, "int_mm"),
+               ("int8.epilogue", layers_module, "apply_i8_epilogue"))
+
+
+@contextlib.contextmanager
+def epilogue_mode(mode: str):
+    """``MMOE_I8_EPILOGUE=mode`` for the duration."""
+    old = os.environ.get("MMOE_I8_EPILOGUE")
+    os.environ["MMOE_I8_EPILOGUE"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["MMOE_I8_EPILOGUE"]
+        else:
+            os.environ["MMOE_I8_EPILOGUE"] = old
+
+
+def calib_batches(n: int, b: int, seed: int, dev) -> list:
+    """``n`` seeded batches of ``b`` normalized frames on the card."""
+    return [random_images(b, seed=seed + i, dev=dev).float() / 255.0 for i in range(n)]
+
+
+def quantized(model_fp, model_q, batches, **kw):
+    """Calibrate ``model_fp`` on the card over ``batches``, fold its weights
+    into ``model_q``'s quant tree and load ``model_q`` (on the card) with it
+    and the fp islands' weights."""
+    t0 = time.perf_counter()
+    tree = quant.quantize_detector(model_fp, model_q, batches, **kw)
+    quant.load_serving(model_q, quant.merge_serving_variables(tree, model_fp.state_dict()))
+    torch.cuda.synchronize()
+    return model_q.eval(), time.perf_counter() - t0
+
+
+def recording_convs(record: list):
+    """Record the arguments of every int8 conv of a forward."""
+    stack = contextlib.ExitStack()
+
+    def make(real):
+        def conv(q, w_q, stride=1, padding=0, **kw):
+            record.append((q, w_q, stride, padding))
+            return real(q, w_q, stride, padding, **kw)
+        return conv
+
+    for mod in (layers_module, yolo_module):
+        stack.enter_context(patched(mod, "int8_conv2d", make))
+    return stack
+
+
+def conv_shapes(record: list) -> list:
+    """The distinct conv shapes of a recorded forward, with their call counts
+    and one recorded input each."""
+    shapes: dict = {}
+    for q, w, s, p in record:
+        key = (tuple(q.shape), tuple(w.shape), s, p)
+        if key in shapes:
+            shapes[key][-1] += 1
+        else:
+            shapes[key] = [q, w, s, p, 1]
+    return list(shapes.values())
+
+
+def int8_conv_check(model_q, images) -> list:
+    """``int8_conv2d`` (``torch._int_mm``) against its float64 version at
+    every distinct conv shape of one forward, on that forward's own codes."""
+    record = []
+    with recording_convs(record), torch.inference_mode():
+        model_q(images.float() / 255.0)
+    rows = []
+    for q, w, s, p, calls in conv_shapes(record):
+        got = int8_conv.int8_conv2d(q, w, s, p)
+        ref = int8_conv.int8_conv2d_plain(q, w, s, p)
+        k = w.shape[1] * w.shape[2] * w.shape[3]
+        rows.append({"input": list(q.shape), "weight": list(w.shape), "stride": s,
+                     "calls": calls, "K": k, "N": w.shape[0], "bitwise": torch.equal(got, ref),
+                     "max_abs_err": float((got - ref).abs().max())})
+    torch.cuda.synchronize()
+    return rows
+
+
+def int8_conv_times(rows: list, dev) -> dict:
+    """Each conv shape at B = ``INT8_CONV_TIME_B`` on random codes: the whole
+    ``int8_conv2d``, its im2col and its ``torch._int_mm`` alone, and the bf16
+    cuDNN conv of the same shape (channels-last); totals weighted by the
+    shape's calls in one forward."""
+    gen = torch.Generator(device=dev).manual_seed(50)
+    out, total = [], {"int8_conv_ms": 0.0, "im2col_ms": 0.0, "int_mm_ms": 0.0, "bf16_cudnn_ms": 0.0}
+    for r in rows:
+        _, c, h, w = r["input"]
+        o, _, k, _ = r["weight"]
+        s, p = r["stride"], k // 2
+        q = torch.randint(-127, 128, (INT8_CONV_TIME_B, h, w, c), generator=gen, device=dev,
+                          dtype=torch.int8).permute(0, 3, 1, 2)
+        wq = torch.randint(-127, 128, (o, c, k, k), generator=gen, device=dev, dtype=torch.int8)
+        w_gemm = int8_conv.gemm_weight(wq)
+        x = q.permute(0, 2, 3, 1).contiguous()
+        cols = int8_conv.im2col(x, k, s, p, w_gemm.shape[0])
+        xb = q.to(torch.bfloat16)
+        wb = wq.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        t = {"int8_conv_ms": cuda_ms(lambda: int8_conv.int8_conv2d(q, wq, s, p), reps=5),
+             "im2col_ms": cuda_ms(lambda: int8_conv.im2col(x, k, s, p, w_gemm.shape[0]), reps=5),
+             "int_mm_ms": cuda_ms(lambda: int8_conv.int_mm(cols, w_gemm), reps=5),
+             "bf16_cudnn_ms": cuda_ms(lambda: F.conv2d(xb, wb, stride=s, padding=p), reps=5)}
+        out.append({"input": [INT8_CONV_TIME_B, c, h, w], "weight": r["weight"], "stride": s,
+                    "calls": r["calls"], **t})
+        for key, ms in t.items():
+            total[key] += ms * r["calls"]
+        del q, wq, w_gemm, x, cols, xb, wb
+    torch.cuda.empty_cache()
+    return {"batch": INT8_CONV_TIME_B, "per_shape": out, "forward_total": total}
+
+
+def int8_profile(forward) -> dict:
+    """The device time of one forward's im2col, ``torch._int_mm`` and epilogue
+    passes (``torch.profiler``, ``record_function`` ranges around the port's
+    functions) and of all its kernels."""
+    def ranged(label):
+        def make(real):
+            def fn(*args, **kwargs):
+                with torch.profiler.record_function(label):
+                    return real(*args, **kwargs)
+            return fn
+        return make
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with contextlib.ExitStack() as stack:
+        for label, mod, name in INT8_RANGES:
+            stack.enter_context(patched(mod, name, ranged(label)))
+        forward()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            forward()
+            torch.cuda.synchronize()
+    labels = {label for label, _, _ in INT8_RANGES}
+
+    def device_us(e) -> float:
+        """The kernels a CPU op launched, its children's included (the GPU-side
+        copies of the ranges themselves left out)."""
+        return (sum(k.duration for k in e.kernels if k.name not in labels)
+                + sum(device_us(c) for c in e.cpu_children))
+
+    split = dict.fromkeys(sorted(labels), 0.0)
+    kernels = 0.0
+    for e in prof.events():
+        on_card = str(e.device_type).endswith("CUDA")
+        if e.name in labels:
+            if not on_card:
+                split[e.name] += device_us(e)
+        elif on_card:
+            kernels += e.time_range.elapsed_us()
+    split = {k.replace("int8.", "") + "_ms": v / 1e3 for k, v in split.items()}
+    split["kernel_ms_total"] = kernels / 1e3
+    split["other_kernel_ms"] = split["kernel_ms_total"] - sum(
+        split[k] for k in ("im2col_ms", "int_mm_ms", "epilogue_ms"))
+    return split
+
+
+def int8_card_vs_cpu(model_q, model_fp, images) -> dict:
+    """One frame on the card and on the CPU, in the ``silu`` and ``bf16``
+    epilogues: the first conv's int32 accumulator bit for bit; each
+    requantizing conv of the card on the CPU's own input codes against the
+    CPU's output codes (equal, or one apart at no more than
+    ``INT8_LOCAL_SHARE``); the whole forward's codes layer by layer, where a
+    code one apart feeds every later layer; and the logits against
+    ``INT8_CLOSER``, checked in the bf16 epilogue."""
+    cpu_q = copy.deepcopy(model_q).cpu()
+    cpu_fp = copy.deepcopy(model_fp).cpu().to(memory_format=torch.contiguous_format)
+    x = images.float() / 255.0
+    with torch.inference_mode():
+        fp_out = cpu_fp(x.cpu())
+    requant = lambda m: "s_out" in getattr(m, "_quant_leaves", ())  # noqa: E731
+    pairs = [(c, m) for c, m in zip(model_q.modules(), cpu_q.modules()) if requant(m)]
+    rec = {}
+    for mode in ("silu", "bf16"):
+        io = {"card": [], "cpu": []}
+        firsts = {"card": [], "cpu": []}
+        hooks = [m.register_forward_hook(
+                     lambda mod, a, o, side=side: io[side].append((mod, a[0], o)))
+                 for card_m, cpu_m in pairs for side, m in (("card", card_m), ("cpu", cpu_m))]
+        try:
+            with epilogue_mode(mode), torch.inference_mode():
+                with recording_convs(firsts["card"]):
+                    card = model_q(x)
+                with recording_convs(firsts["cpu"]):
+                    cpu = cpu_q(x.cpu())
+        finally:
+            for h in hooks:
+                h.remove()
+        q_card, w_card, s, p = firsts["card"][0]
+        q_cpu, w_cpu, _, _ = firsts["cpu"][0]
+        inputs_equal = torch.equal(q_card.cpu(), q_cpu)
+        acc_equal = torch.equal(int8_conv.int8_conv2d(q_card, w_card, s, p).cpu(),
+                                int8_conv.int8_conv2d(q_cpu, w_cpu, s, p))
+        # Layer by layer: each card conv on the CPU forward's own input codes.
+        to_card = {id(cpu_m): card_m for card_m, cpu_m in pairs}
+        local, n_diff, n_all, local_max = [], 0, 0, 0
+        with epilogue_mode(mode), torch.inference_mode():
+            for mod, inp, out in io["cpu"]:
+                got = to_card[id(mod)](quant.QT(inp.q.to(x.device), inp.s.to(x.device)))
+                d = (got.q.cpu().int() - out.q.int()).abs()
+                local.append(float((d > 0).float().mean()))
+                local_max = max(local_max, int(d.max()))
+                n_diff += int((d > 0).sum())
+                n_all += d.numel()
+        chained = [float((a[2].q.cpu() != b[2].q).float().mean())
+                   for a, b in zip(io["card"], io["cpu"])]
+        logits = {}
+        for k in ("box_logits", "cls_logits"):
+            diff = (card[k].cpu() - cpu[k]).abs()
+            logits[k] = {"card_vs_cpu_mean_abs": float(diff.mean()),
+                         "card_vs_cpu_max_abs": float(diff.max()),
+                         "int8_vs_fp_mean_abs": float((cpu[k] - fp_out[k]).abs().mean())}
+        rec[mode] = {"first_conv_inputs_equal": inputs_equal,
+                     "first_conv_accumulator_bitwise": acc_equal,
+                     "requant_convs": len(local), "local_code_share_one_apart": n_diff / n_all,
+                     "local_max_share_in_a_layer": max(local), "local_max_code_diff": local_max,
+                     "chained_code_share_by_layer": chained, "logits": logits}
+    emit({"phase": "int8_progress", "yolo_card_vs_cpu": rec})
+    for mode, r in rec.items():
+        check(r["first_conv_inputs_equal"], f"{mode}: the first conv's input codes card == CPU")
+        check(r["first_conv_accumulator_bitwise"], f"{mode}: the first conv's int32 accumulator")
+        check(r["local_max_code_diff"] <= 1 and r["local_code_share_one_apart"] <= INT8_LOCAL_SHARE,
+              f"{mode}: each conv's codes on the CPU's inputs equal or one apart")
+    for k, v in rec["bf16"]["logits"].items():
+        check(INT8_CLOSER * v["card_vs_cpu_mean_abs"] <= v["int8_vs_fp_mean_abs"],
+              f"bf16: card vs CPU {k} within the relation")
+    return rec
+
+
+def int8_headline(model_q, images, ctx, dev) -> dict:
+    """The int8 serving step (pool 512, full tail): step, forward and tail
+    ms, img/s, peak memory, B1's launches over the timed steps from zero (one
+    a step), the kernel tail bitwise against the plain tail on the same
+    forward outputs, and the forward's profiler split."""
+    b = images.shape[0]
+    nms_kw = dict(iou_threshold=IOU, score_threshold=SCORE_THR, max_det=MAX_DET)
+    step = make_serving_step(model_q, pool=POOL, tail="full", **nms_kw)
+    kwargs = {} if ctx is None else {"context_ids": ctx}
+
+    def forward():
+        with torch.inference_mode():
+            return model_q(images.float() / 255.0, **kwargs)
+
+    # The main path: the counts from zero over the timed serving steps.
+    nms_kernel.nms_keep_launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = cuda_ms(lambda: step(images, ctx), reps=5)      # 2 warm-up + 5 steps
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    launches = nms_kernel.nms_keep_launches
+    res = step(images, ctx)
+    torch.cuda.synchronize()
+    out = forward()
+    with torch.inference_mode():
+        scores = torch.sigmoid(out["cls_logits"][..., 0])
+        kern = batched_nms(out["boxes"], scores, num_candidates=POOL, **nms_kw)
+        zeros = torch.zeros(scores.shape, dtype=torch.int32, device=dev)
+        plain = _batched_nms_plain(out["boxes"], scores, zeros, num_candidates=POOL,
+                                   class_agnostic=False, **nms_kw)
+    torch.cuda.synchronize()
+    rec = {"batch": b, "step_ms": step_ms, "img_per_s": b * 1000.0 / step_ms,
+           "peak_mem_gib": peak_gib, "nms_keep_launches": launches, "timed_steps": 7,
+           "forward_ms": cuda_ms(forward, reps=3),
+           "nms_tail_ms": cuda_ms(lambda: batched_nms(out["boxes"], scores, num_candidates=POOL,
+                                                      **nms_kw), reps=10),
+           "tail_bitwise_plain": bitwise_equal(kern, plain), "valid_out": int(res.valid.sum()),
+           "forward_profile": int8_profile(forward)}
+    check(launches == 7, f"int8 serving launched nms_keep {launches} times over 7 steps")
+    check(rec["tail_bitwise_plain"], "int8 kernel tail == plain tail on one forward")
+    check(all(bool(torch.isfinite(t).all()) for t in res[:2]), "finite int8 outputs")
+    check(tuple(res.boxes.shape) == (b, MAX_DET, 4), "int8 NmsResult shape")
+    return rec
+
+
+def int8_rtdetr(dev) -> dict:
+    """RT-DETR r50vd int8 (backbone and CCFF int8, AIFI and the decoder fp)
+    at B=16: step ms, img/s, peak memory, B4 six times a step from zero,
+    and B4 on decoder layer 0's own inputs against its plain version."""
+    fp = build_rtdetr(torch.float32, dev)
+    q = RTDETRDetector(num_classes=1, num_queries=RT_QUERIES, num_decoder_layers=RT_LAYERS,
+                       arch="tpu", int8=True).to(dev)
+    q, calib_s = quantized(fp, q, calib_batches(INT8_CALIB_BATCHES, 2, seed=60, dev=dev))
+    del fp
+    torch.cuda.empty_cache()
+    kw = dict(max_det=MAX_DET, score_threshold=SCORE_THR)
+    step = make_serving_step(q, **kw)
+    images = random_images(RT_B, seed=4, dev=dev)
+    cap = Capture(q)
+    deformable_kernel.ms_deform_fwd_launches = 0
+    res = step(images)
+    torch.cuda.synchronize()
+    launches = deformable_kernel.ms_deform_fwd_launches
+    cap.remove()
+    check(launches == RT_LAYERS, f"int8 RT-DETR step launched ms_deform_fwd {launches} times")
+    check(all(bool(torch.isfinite(t).all()) for t in res[:2]), "finite int8 RT-DETR outputs")
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = cuda_ms(lambda: step(images), reps=5)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+
+    def forward():
+        with torch.inference_mode():
+            return q(images.float() / 255.0)
+
+    v, loc, attn, levels = cap.kernel_inputs
+    b4 = deform_compare(v, levels, loc, attn, library=False)
+    rec = {"batch": RT_B, "calibration_s": calib_s, "step_ms": step_ms,
+           "img_per_s": RT_B * 1000.0 / step_ms, "peak_mem_gib": peak_gib,
+           "ms_deform_fwd_launches": launches, "b4_on_step_inputs": b4,
+           "forward_ms": cuda_ms(forward, reps=3), "forward_profile": int8_profile(forward),
+           "valid_out": int(res.valid.sum())}
+    check_deform(b4, "ms_deform_fwd on the int8 RT-DETR step's inputs")
+    del q, step, cap, v, loc, attn
+    torch.cuda.empty_cache()
+    return rec
+
+
+def int8_evaluate(dev) -> dict:
+    """``evaluate_detector`` on a ``quantize_loaded`` YOLO-s run dir: the npz
+    written by the first load and reused by the second, four batches of 16
+    (pool 1024), each tail bitwise against the plain tail on the CPU, B1
+    once a batch, 0 < mAP50 < 1."""
+    with tempfile.TemporaryDirectory() as tmp:
+        run = write_run_dir(Path(tmp), {"family": "yolo", "variant": "s"})
+        loaded = loading.load_detector(run, device=dev)
+        npz = run / "weights" / "int8_quant_best.npz"
+        check(not npz.exists(), "no quant npz before the first load")
+        calib = [x.cpu().numpy() for x in
+                 calib_batches(INT8_CALIB_BATCHES, INT8_CALIB_B, seed=63, dev=dev)]
+        t0 = time.perf_counter()
+        first = loading.quantize_loaded(loaded, calib)
+        first_s = time.perf_counter() - t0
+        check(npz.exists(), "quantize_loaded wrote the quant npz")
+
+        def refuse(real):
+            def calibrate(*a, **k):
+                raise RuntimeError("the quant npz beside the checkpoint was not reused")
+            return calibrate
+
+        t0 = time.perf_counter()
+        with patched(quant, "calibrate", refuse):
+            int8 = loading.quantize_loaded(loaded, [])
+        second_s = time.perf_counter() - t0
+        check(all(torch.equal(v, int8.variables[k]) for k, v in first.variables.items()),
+              "the reused npz gives the same int8 model")
+        check(model_device(int8.model).type == "cuda", "the int8 model on the card")
+        batches = eval_batches(EVAL_BATCHES, EVAL_B, seed=30)
+        for batch in batches:
+            del batch["solar_bin"]
+        infer = evaluator.make_inference_fn(int8.model, int8.variables)
+
+        def first_pass(batch):
+            boxes, scores = infer(host_rgb(batch))
+            with torch.inference_mode():
+                return batched_nms(boxes, scores)
+
+        plant_ground_truth(batches, first_pass, seed=5)
+        metrics, seen, results, launches = evaluate_recorded(int8, batches, use_nms=True)
+        torch.cuda.synchronize()
+        check_evaluation("yolo int8", batches, metrics, seen, results, use_nms=True)
+        check(launches["nms_keep"] == EVAL_BATCHES, f"int8 evaluate launched B1 {launches}")
+    return {"quantize_loaded_first_s": first_s, "quantize_loaded_reuse_s": second_s,
+            "npz_written_then_reused": True, "batches": EVAL_BATCHES, "batch": EVAL_B,
+            "launches": launches,
+            "metrics": {k: v for k, v in metrics.items() if k != "curves_results"}}
+
+
+def phase_int8(dev, smi: str, bf16: dict) -> dict:
+    """int8 PTQ serving on the card (random weights from seed 0, calibrated
+    on seeded batches, 704x1248): the conv at every YOLO-s shape against its
+    float64 version, YOLO-s card against CPU, the YOLO-s and MoE-YOLO-s
+    B=128 headlines, RT-DETR r50vd at B=16, and evaluation of a
+    ``quantize_loaded`` run dir. ``bf16`` holds the same run's bf16
+    headlines."""
+    t_phase = time.perf_counter()
+    rec = {"phase": "int8", "img_hw": [IMG_H, IMG_W], "epilogue": "bf16 (default)",
+           "calibration": {"mode": "absmax", "batches": INT8_CALIB_BATCHES,
+                           "frames": INT8_CALIB_B},
+           "gpu": smi, **tf32_state()}
+    # YOLO-s
+    fp = build_model(torch.float32, dev)
+    q = YoloDetector(num_classes=1, variant="s", arch="tpu", int8=True).to(dev)
+    q, calib_s = quantized(fp, q, calib_batches(INT8_CALIB_BATCHES, INT8_CALIB_B, seed=40, dev=dev))
+    conv_rows = int8_conv_check(q, random_images(2, seed=41, dev=dev))
+    rec["conv_check"] = {"batch": 2, "shapes": conv_rows}
+    check(all(r["bitwise"] for r in conv_rows), "int8_conv2d == float64 conv at every shape")
+    check(any(r["K"] % 8 or r["N"] % 8 for r in conv_rows), "a shape with K or N off 8")
+    rec["conv_times"] = int8_conv_times(conv_rows, dev)
+    rec["yolo_card_vs_cpu"] = int8_card_vs_cpu(q, fp, random_images(1, seed=42, dev=dev))
+    del fp
+    torch.cuda.empty_cache()
+    rec["yolo"] = {"model": "yolo-s arch=tpu int8", "calibration_s": calib_s,
+                   **int8_headline(q, random_images(INT8_B, seed=2, dev=dev), None, dev),
+                   "bf16_same_run": bf16["yolo"]}
+    emit({"phase": "int8_progress", "done": "yolo", "yolo": rec["yolo"]})
+    del q
+    torch.cuda.empty_cache()
+    # MoE-YOLO-s
+    fp = build_moe_yolo(torch.float32, dev)
+    q = MoEYoloDetector(num_classes=1, variant="s", num_experts=MOE_E, k=MOE_K,
+                        capacity_factor=MOE_CF, arch="tpu", int8=True).to(dev)
+    q, calib_s = quantized(fp, q, calib_batches(INT8_CALIB_BATCHES, INT8_CALIB_B, seed=43, dev=dev),
+                           context_ids=context_ids(INT8_CALIB_B, seed=44, dev=dev))
+    del fp
+    torch.cuda.empty_cache()
+    rec["moe"] = {"model": "moe-yolo-s E=4 k=2 int8 (w8a8 sweep)", "calibration_s": calib_s,
+                  **int8_headline(q, random_images(MOE_B, seed=7, dev=dev),
+                                  context_ids(MOE_B, seed=8, dev=dev), dev),
+                  "bf16_same_run": bf16["moe"]}
+    del q
+    torch.cuda.empty_cache()
+    rec["rtdetr"] = {"model": "rtdetr r50vd int8 (backbone + CCFF)", **int8_rtdetr(dev),
+                     "bf16_same_run": bf16["rtdetr"]}
+    rec["evaluate"] = int8_evaluate(dev)
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -2949,7 +3407,7 @@ def main() -> int:
     cases = phase_deform_kernel(dev)
     _, fp32_err = phase_rtdetr_fp32(dev)
     phase_rtdetr_serving(dev, smi, torch.float32)
-    _, main = phase_rtdetr_serving(dev, smi, torch.bfloat16)
+    rt_bf16, main = phase_rtdetr_serving(dev, smi, torch.bfloat16)
     bwd_cases = phase_deform_bwd(dev)
     train_fp32 = phase_rtdetr_train_fp32(dev)
     train, bwd_main, fwd_train = phase_rtdetr_train(dev, smi)
@@ -2990,6 +3448,16 @@ def main() -> int:
         per_level, moe_serving["routes"]["fused"]["moe_ffn_fwd_launches"],
         [fp32_ffn_err] + [c["max_abs_err"] for c in ffn_cases.values()]
         + [lv["max_abs_err"] for lv in per_level])
+    headline_of = lambda r: {k: r[k] for k in ("step_ms", "img_per_s", "peak_mem_gib")}  # noqa: E731
+    int8 = phase_int8(dev, smi, {"yolo": headline_of(serving),
+                                 "moe": headline_of(moe_serving["routes"]["auto"]),
+                                 "rtdetr": headline_of(rt_bf16)})
+    emit(int8)
+    nms_entry["int8_launches"] = {"yolo": int8["yolo"]["nms_keep_launches"],
+                                  "moe": int8["moe"]["nms_keep_launches"],
+                                  "evaluate": int8["evaluate"]["launches"]["nms_keep"],
+                                  "timed_steps": int8["yolo"]["timed_steps"]}
+    deform_entry["int8_launches"] = int8["rtdetr"]["ms_deform_fwd_launches"]
     gmm_cases = phase_gmm_kernel(dev)
     phase_moe_yolo_train_fp32(dev)
     moe_train = phase_moe_yolo_train(dev, smi)

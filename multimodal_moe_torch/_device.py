@@ -2,7 +2,14 @@
 
 from __future__ import annotations
 
+import itertools
+
 import torch
+
+
+def model_device(model: torch.nn.Module) -> torch.device:
+    """The device of a model's tensors (an int8 YOLO holds buffers only)."""
+    return next(itertools.chain(model.parameters(), model.buffers())).device
 
 
 def resolve_device(device: "str | torch.device | None" = None) -> torch.device:

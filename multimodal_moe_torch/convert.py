@@ -19,7 +19,8 @@ map is mechanical. Leaf kinds, keyed by their path:
 * ``batch_stats`` ``mean`` / ``var`` → ``running_mean`` / ``running_var``
   (plus torch's ``num_batches_tracked``, which Flax does not keep)
 
-Any other leaf raises.
+Any other leaf raises. :func:`quant_tree_to_state_dict` does the same for
+the int8 serving tree (``quant.py``).
 """
 
 from __future__ import annotations
@@ -82,4 +83,21 @@ def flax_to_state_dict(variables_np: Mapping[str, Any]) -> "Dict[str, torch.Tens
             raise ValueError(f"unsupported batch statistic {'/'.join(path)}")
         sd[f"{mod}.{_STAT_LEAVES[name]}"] = torch.from_numpy(np.asarray(leaf).copy())
         sd.setdefault(f"{mod}.num_batches_tracked", torch.tensor(0, dtype=torch.long))
+    return sd
+
+
+def quant_tree_to_state_dict(quant_np: Mapping[str, Any]) -> "Dict[str, torch.Tensor]":
+    """JAX's int8 serving tree ``{"quant": ...}`` (numpy) → the int8 model's
+    quant tensors by name. Conv ``w_q`` HWIO → OIHW; every other leaf (the
+    scales, biases, and the MoE's ``w1_q`` / ``w2_q`` / ``b1`` / ``b2`` in the
+    expert parameters' own layout) is kept as it is, dtype included."""
+    unknown = set(quant_np) - {"quant"}
+    if unknown:
+        raise ValueError(f"unsupported variable collections: {sorted(unknown)}")
+    sd: "Dict[str, torch.Tensor]" = {}
+    for path, leaf in _walk(quant_np.get("quant", {})):
+        arr = np.asarray(leaf)
+        if path[-1] == "w_q" and arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
+        sd[".".join(path)] = torch.from_numpy(arr.copy(order="C"))
     return sd

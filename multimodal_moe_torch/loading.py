@@ -4,9 +4,9 @@ Counterpart of ``multimodal_moe_tpu/loading.py`` for the port's own run
 directories: ``model_config.json`` plus the ``torch.save`` checkpoints of
 ``train/state.py:CheckpointManager`` (``weights/best``, ``weights/last``).
 This module is the one place that maps them back to a constructed detector
-and its restored weights. Floating point only: int8 serving
-(``quantize_loaded``) and Orbax run dirs of the JAX package are not ported
-yet (ROADMAP A3, A5).
+and its restored weights, fp or, through :func:`quantize_loaded`, int8 PTQ
+for serving (YOLO, MoE-YOLO and RT-DETR). Orbax run dirs of the JAX package
+are not read (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -14,9 +14,11 @@ from __future__ import annotations
 import json
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Iterable, Tuple
 
 import torch
+
+from ._device import model_device
 
 
 def resolve_checkpoint(weights: Path, which: str = "best") -> "Tuple[Path, dict]":
@@ -40,19 +42,23 @@ def resolve_checkpoint(weights: Path, which: str = "best") -> "Tuple[Path, dict]
 
 def build_detector(model_cfg: dict, *, int8: bool = False, fp_box: bool = False):
     """``model_config.json`` → (family, constructed detector), with the JAX
-    module's keys and defaults. The weights are a fresh init."""
-    if int8 or fp_box:
-        raise NotImplementedError(
-            "int8 serving is not ported yet (ROADMAP A3: quant.py and the int8 branches)")
+    module's keys and defaults. The weights are a fresh init; an ``int8``
+    model's quant tensors are zeros and ones until ``quant.load_serving``.
+
+    ``fp_box`` (yolo/moe int8 only) keeps the DFL box-regression branch fp —
+    the strict-IoU PTQ accuracy mode (``models.yolo.DetectHead``)."""
     family = model_cfg.get("family", "yolo")
     num_classes = model_cfg.get("num_classes", 1)
     variant = model_cfg.get("variant", "s")
+    extra = {"int8": True} if int8 else {}
+    if int8 and fp_box and family != "rtdetr":
+        extra["int8_fp_box"] = True
     if family == "moe":
         from .models.moe_yolo import MoEYoloDetector
 
         return family, MoEYoloDetector(
             num_classes=num_classes, variant=variant,
-            num_experts=model_cfg.get("num_experts", 4),
+            num_experts=model_cfg.get("num_experts", 4), **extra,
         )
     if family == "rtdetr":
         from .models.rtdetr import RTDETRDetector
@@ -61,11 +67,11 @@ def build_detector(model_cfg: dict, *, int8: bool = False, fp_box: bool = False)
             num_classes=num_classes,
             hidden_dim=model_cfg.get("hidden_dim", 256),
             num_queries=model_cfg.get("num_queries", 300),
-            num_decoder_layers=model_cfg.get("num_decoder_layers", 6),
+            num_decoder_layers=model_cfg.get("num_decoder_layers", 6), **extra,
         )
     from .models.yolo import YoloDetector
 
-    return "yolo", YoloDetector(num_classes=num_classes, variant=variant)
+    return "yolo", YoloDetector(num_classes=num_classes, variant=variant, **extra)
 
 
 @dataclass
@@ -118,3 +124,42 @@ def load_detector(
                 p.copy_(state.ema_params[name])
     variables = dict(model.state_dict())
     return LoadedDetector(family, model, model_cfg, variables, ckpt_path)
+
+
+def quantize_loaded(
+    loaded: LoadedDetector,
+    calib_batches: Iterable,
+    *,
+    fp_box: bool = False,
+    mode: str = "absmax",
+) -> LoadedDetector:
+    """int8 PTQ serving twin of a loaded detector, on its device.
+
+    Reuses a quant npz beside the checkpoint when there is one
+    (``int8_quant.npz``, or ``int8_quant_<ckpt>.npz`` as the eval CLI names
+    it, in JAX's or the port's writing); else calibrates ``loaded.model``
+    on ``calib_batches`` (normalized float NHWC image batches, the
+    ``quant.calibrate`` contract) and writes ``int8_quant_<ckpt>.npz``, as
+    the eval CLI does. The npz is always the full-int8 model's tree (a
+    superset), shared by both serving modes. MoE-YOLO, RT-DETR and the
+    ``fp_box`` mode quantize part of the net: their fp islands keep the
+    loaded fp weights."""
+    from . import quant as qz
+
+    ckpt_dir, ckpt_name = loaded.ckpt_path.parent, loaded.ckpt_path.name
+    _, model_q = build_detector(loaded.model_cfg, int8=True)
+    qvars = None
+    for name in ("int8_quant.npz", f"int8_quant_{ckpt_name}.npz"):
+        if (ckpt_dir / name).exists():
+            qvars = qz.load_quant_npz(ckpt_dir / name)
+            break
+    if qvars is None:
+        qvars = qz.quantize_detector(loaded.model, model_q, list(calib_batches), mode=mode)
+        qz.save_quant_npz(ckpt_dir / f"int8_quant_{ckpt_name}.npz", qvars)
+    model_serve = model_q
+    if fp_box and loaded.family in ("moe", "yolo"):
+        _, model_serve = build_detector(loaded.model_cfg, int8=True, fp_box=True)
+    qz.load_serving(model_serve, qz.merge_serving_variables(qvars, loaded.variables))
+    model_serve = model_serve.to(model_device(loaded.model)).eval()
+    return LoadedDetector(loaded.family, model_serve, loaded.model_cfg,
+                          dict(model_serve.state_dict()), loaded.ckpt_path)

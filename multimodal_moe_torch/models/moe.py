@@ -1,4 +1,5 @@
-"""Context-routed Mixture-of-Experts (PyTorch), fp path.
+"""Context-routed Mixture-of-Experts (PyTorch): the fp path and the w8a8
+serving sweep.
 
 Counterpart of ``multimodal_moe_tpu/models/moe.py``: the fp32 context gate
 (``token·W + context_bias[solar_bin]``), the three top-k routers with the
@@ -18,6 +19,11 @@ Switch balance loss and the ST-MoE z-loss, and the dispatch modes of
 * ``"auto"``: dense up to 4096 tokens, then sweep up to 16 experts, else
   sparse (:func:`resolve_dispatch`).
 
+Built with ``int8=True``, ``MoEFFN`` takes a ``quant.QT`` of int8 tokens and
+always runs :func:`moe_apply_sweep_int8` (dropless, every expert on every
+token, both products ``torch._int_mm``), whatever ``dispatch`` says; the
+router stays fp32.
+
 Single card: the JAX module's mesh sharding constraints have no counterpart
 here. Top-k over probabilities uses ``stable_topk`` (``lax.top_k``'s order:
 lower index first among ties), never ``torch.topk``.
@@ -33,7 +39,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import gmm_kernel, moe_kernels
+from ..ops.int8_conv import int_mm
 from ..ops.nms import stable_topk
+from ..quant import QT, record, recording, register_quant
 
 # 5 labelled solar-elevation bins + "missing" (data/solar.py of the JAX package).
 NUM_SOLAR_BINS = 6
@@ -212,6 +220,47 @@ def moe_apply_gmm(tokens, expert_idx, gates, w1, b1, w2, b2, *,
     return weighted.reshape(t, k, d).sum(dim=1)
 
 
+SWEEP_INT8_BUDGET_BYTES = 1 << 28
+
+
+def moe_apply_sweep_int8(tokens_q, token_scale, expert_idx, gates, w1_q, s_w1, b1, s_mid,
+                         w2_q, s_w2, b2) -> torch.Tensor:
+    """w8a8 expert sweep, the serving twin of :func:`moe_apply_sweep`.
+
+    ``tokens_q`` (T, d) int8 codes at ``token_scale``; ``w1_q`` (E, d, h) and
+    ``w2_q`` (E, h, d) int8 with per-expert-per-channel scales ``s_w1`` (E, h)
+    and ``s_w2`` (E, d); ``b1`` (E, 1, h), ``b2`` (E, 1, d); ``s_mid`` (E,)
+    the calibrated mid scales. Each expert's two products are exact int32
+    ``torch._int_mm``; the mid epilogue is ``layers.apply_i8_epilogue`` with
+    SiLU, requantized per expert; the output and the gate combine are fp32.
+    Tokens go in chunks of at most ``SWEEP_INT8_BUDGET_BYTES`` of int32
+    accumulator: at MoE-YOLO-s B=128 the whole (E, T, h) accumulator of
+    level 0 would be 4·1.757M·256·4 B ≈ 7.2 GB."""
+    from .layers import apply_i8_epilogue
+
+    t, d = tokens_q.shape
+    e, _, h = w1_q.shape
+    comb = torch.zeros((t, e), dtype=torch.float32, device=tokens_q.device)
+    comb.scatter_add_(1, expert_idx, gates.float())
+    # the GEMMs' right operands column-major (cuBLASLt's int8 layout)
+    w1_t = w1_q.transpose(1, 2).contiguous()
+    w2_t = w2_q.transpose(1, 2).contiguous()
+    out = torch.empty((t, d), dtype=torch.float32, device=tokens_q.device)
+    chunk = max(1, SWEEP_INT8_BUDGET_BYTES // (4 * max(h, d)))
+    for s in range(0, t, chunk):
+        x = tokens_q[s:s + chunk]
+        acc = None
+        for i in range(e):
+            x32 = int_mm(x, w1_t[i].t())
+            mid_q = apply_i8_epilogue(x32, token_scale * s_w1[i], b1[i], True, s_mid[i])
+            y32 = int_mm(mid_q, w2_t[i].t())
+            out_e = y32.float() * (s_mid[i] * s_w2[i]) + b2[i]
+            term = out_e * comb[s:s + chunk, i:i + 1]
+            acc = term if acc is None else acc + term
+        out[s:s + chunk] = acc
+    return out
+
+
 def resolve_dispatch(dispatch: str, num_tokens: int, num_experts: int) -> str:
     """Resolve ``dispatch="auto"`` to the mode :class:`MoEFFN` runs."""
     if dispatch != "auto":
@@ -289,6 +338,11 @@ class MoEFFN(nn.Module):
     ``(d, E)``, ``router.context_bias``, ``experts_w1`` ``(E, d, h)``,
     ``experts_b1`` ``(E, 1, h)``, ``experts_w2`` ``(E, h, d)``, ``experts_b2``
     ``(E, 1, d)``); the expert weights are cast to the compute dtype at use.
+    With ``int8`` the expert weights are the quant leaves of JAX's ``quant``
+    collection (``w1_q``, ``s_w1``, ``b1``, ``s_mid``, ``w2_q``, ``s_w2``,
+    ``b2``) and the router keeps its fp32 parameters. The fp forward records
+    ``mid_absmax``, the per-expert absmax of the sweep's mid activation over
+    all tokens, while ``quant.calibrate`` runs.
     """
 
     DENSE_TOKEN_LIMIT = 4096
@@ -298,7 +352,8 @@ class MoEFFN(nn.Module):
     def __init__(self, dim: int, num_experts: int = 4, hidden_mult: float = 2.0, k: int = 2,
                  capacity_factor: float = 1.25, num_context_bins: int = NUM_SOLAR_BINS,
                  dtype: torch.dtype = torch.float32, dispatch: str = "auto",
-                 use_fused_ffn: bool = False, generator: "torch.Generator | None" = None):
+                 use_fused_ffn: bool = False, generator: "torch.Generator | None" = None,
+                 int8: bool = False):
         super().__init__()
         if dispatch not in self.MODES:
             raise ValueError(f"dispatch must be one of {self.MODES}, got {dispatch!r}")
@@ -306,7 +361,16 @@ class MoEFFN(nn.Module):
         e = num_experts
         self.num_experts, self.k, self.capacity_factor = num_experts, k, capacity_factor
         self.dtype, self.dispatch, self.use_fused_ffn = dtype, dispatch, use_fused_ffn
+        self.int8 = int8
         self.router = ContextGate(dim, e, num_context_bins)
+        if int8:
+            for name, shape, dt in (("w1_q", (e, dim, h), torch.int8), ("s_w1", (e, h), None),
+                                    ("b1", (e, 1, h), None), ("s_mid", (e,), None),
+                                    ("w2_q", (e, h, dim), torch.int8), ("s_w2", (e, dim), None),
+                                    ("b2", (e, 1, dim), None)):
+                register_quant(self, name, torch.zeros(shape, dtype=dt or torch.float32))
+            self.router.reset_parameters(generator)
+            return
         self.experts_w1 = nn.Parameter(torch.zeros(e, dim, h))
         self.experts_b1 = nn.Parameter(torch.zeros(e, 1, h))
         self.experts_w2 = nn.Parameter(torch.zeros(e, h, dim))
@@ -322,15 +386,29 @@ class MoEFFN(nn.Module):
             self.experts_b2.zero_()
 
     def forward(self, tokens, context_ids) -> "Tuple[torch.Tensor, Dict[str, torch.Tensor]]":
-        if not tokens.is_floating_point():
-            raise NotImplementedError(
-                "int8 (QT) tokens: the w8a8 expert sweep is not ported yet "
-                "(ROADMAP.md queue A item 5)")
+        """``tokens`` (T, d) fp, or a ``QT`` of int8 codes (the w8a8 sweep,
+        fp32 out); ``context_ids`` (T,)."""
+        quant = isinstance(tokens, QT)
+        if quant != self.int8 or not quant and not tokens.is_floating_point():
+            raise TypeError("int8 tokens come as a quant.QT (codes and scale) to a MoEFFN "
+                            "built with int8=True; fp tokens to one built without")
+        if quant:
+            tokens_fp = tokens.q.float() * tokens.s
+            logits = self.router(tokens_fp, context_ids)
+            topk_idx, gates, aux_loss, expert_load = route_top_k_dropless(logits, k=self.k)
+            out = moe_apply_sweep_int8(tokens.q, tokens.s, topk_idx, gates, self.w1_q, self.s_w1,
+                                       self.b1, self.s_mid, self.w2_q, self.s_w2, self.b2)
+            return tokens_fp + out, {"moe_aux_loss": aux_loss, "expert_load": expert_load}
         t = tokens.shape[0]
         e = self.num_experts
         capacity = max(int(t * self.k * self.capacity_factor / e), self.k)
         logits = self.router(tokens, context_ids)
         w1, b1, w2, b2 = self.experts_w1, self.experts_b1, self.experts_w2, self.experts_b2
+        if recording():
+            # The sweep's mid activation over all tokens, one expert at a time.
+            mid_absmax = torch.stack([F.silu(tokens.float() @ w1[i] + b1[i]).abs().amax()
+                                      for i in range(e)])
+            record(self, "mid_absmax", mid_absmax)
 
         mode = resolve_dispatch(self.dispatch, t, e)
         x = tokens.to(self.dtype)

@@ -1,4 +1,4 @@
-"""ResNet-vd (PyTorch, NCHW), fp path, as RT-DETR's detection backbone:
+"""ResNet-vd (PyTorch, NCHW), fp and int8, as RT-DETR's detection backbone:
 deep 3-conv stem and bottleneck stages with the avg-pool shortcut.
 
 Counterpart of ``multimodal_moe_tpu/models/resnet.py``. Submodules carry the
@@ -7,6 +7,10 @@ Flax names (``_ConvBN_0``, ``Conv_0``, ``BatchNorm_0``,
 the eps 1e-3 / SiLU of ``layers.ConvBNAct``. ``remat=True`` recomputes each
 bottleneck block during backward (``torch.utils.checkpoint``, the JAX
 model's ``nn.remat``); the recompute leaves the running statistics alone.
+With ``int8=True`` the blocks run on ``quant.QT`` codes: the folded convs with
+a ReLU epilogue, the residual add requantized to ``s_add_0``, the shortcut's
+average pool on the codes in fp32 (rounded back half to even at the
+unchanged scale) and the stem's max-pool on the codes.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .layers import FlaxBatchNorm2d
+from ..quant import QT, max_pool_codes, record_absmax, register_quant
+from .layers import FlaxBatchNorm2d, conv_quant, register_conv_quant, requant_add
 
 BN_EPS = 1e-5
 
@@ -28,16 +33,23 @@ class _ConvBN(nn.Module):
     """Conv (symmetric padding k//2, no bias) → BatchNorm → ReLU."""
 
     def __init__(self, cin: int, features: int, kernel: int = 3, strides: int = 1,
-                 act: bool = True):
+                 act: bool = True, int8: bool = False):
         super().__init__()
+        self.act, self.stride, self.padding = act, strides, kernel // 2
+        if int8:
+            register_conv_quant(self, cin, features, kernel)
+            return
         self.Conv_0 = nn.Conv2d(cin, features, kernel, strides, kernel // 2, bias=False)
         # Flax momentum 0.9 on the running average is torch momentum 0.1.
         self.BatchNorm_0 = FlaxBatchNorm2d(features, eps=BN_EPS, momentum=0.1)
-        self.act = act
 
     def forward(self, x):
+        if isinstance(x, QT):
+            return conv_quant(self, x, self.stride, self.padding, self.act, act_kind="relu")
         x = self.BatchNorm_0(self.Conv_0(x))
-        return F.relu(x) if self.act else x
+        y = F.relu(x) if self.act else x
+        record_absmax(self, "out_absmax", y)
+        return y
 
 
 def avg_pool_2x2_same(x: torch.Tensor) -> torch.Tensor:
@@ -52,25 +64,39 @@ class BottleneckBlock(nn.Module):
     projects the shortcut where the width or the stride changes, after a
     2×2 average pool where the stride does (the -vd shortcut)."""
 
-    def __init__(self, cin: int, features: int, strides: int = 1):
+    def __init__(self, cin: int, features: int, strides: int = 1, int8: bool = False):
         super().__init__()
         out_ch = features * 4
-        self._ConvBN_0 = _ConvBN(cin, features, 1, 1)
-        self._ConvBN_1 = _ConvBN(features, features, 3, strides)
-        self._ConvBN_2 = _ConvBN(features, out_ch, 1, 1, act=False)
+        self._ConvBN_0 = _ConvBN(cin, features, 1, 1, int8=int8)
+        self._ConvBN_1 = _ConvBN(features, features, 3, strides, int8=int8)
+        self._ConvBN_2 = _ConvBN(features, out_ch, 1, 1, act=False, int8=int8)
         self.project = cin != out_ch or strides != 1
         self.pool = strides != 1
         if self.project:
-            self._ConvBN_3 = _ConvBN(cin, out_ch, 1, 1 if self.pool else strides, act=False)
+            self._ConvBN_3 = _ConvBN(cin, out_ch, 1, 1 if self.pool else strides, act=False,
+                                     int8=int8)
+        if int8:
+            register_quant(self, "s_add_0", torch.ones(()))
 
     def forward(self, x):
         y = self._ConvBN_2(self._ConvBN_1(self._ConvBN_0(x)))
         residual = x
+        quant = isinstance(x, QT)
         if self.project:
-            if self.pool:
+            if self.pool and quant:
+                # Average pooling is linear: pool the codes in fp32 and round
+                # back at the unchanged scale (the mean never exceeds the max).
+                pooled = avg_pool_2x2_same(residual.q.float())
+                residual = QT(torch.clamp(torch.round(pooled), -127, 127).to(torch.int8),
+                              residual.s)
+            elif self.pool:
                 residual = avg_pool_2x2_same(residual)
             residual = self._ConvBN_3(residual)
-        return F.relu(y + residual)
+        if quant:
+            return requant_add(y, residual, self.s_add_0, relu=True)
+        out = F.relu(y + residual)
+        record_absmax(self, "add0_absmax", out)
+        return out
 
 
 class ResNet(nn.Module):
@@ -79,13 +105,13 @@ class ResNet(nn.Module):
     4/8/16/32."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), width: int = 64,
-                 remat: bool = False):
+                 remat: bool = False, int8: bool = False):
         super().__init__()
         self.remat = remat
         # Deep stem: three 3×3 convs.
-        self._ConvBN_0 = _ConvBN(3, width // 2, 3, 2)
-        self._ConvBN_1 = _ConvBN(width // 2, width // 2, 3, 1)
-        self._ConvBN_2 = _ConvBN(width // 2, width, 3, 1)
+        self._ConvBN_0 = _ConvBN(3, width // 2, 3, 2, int8=int8)
+        self._ConvBN_1 = _ConvBN(width // 2, width // 2, 3, 1, int8=int8)
+        self._ConvBN_2 = _ConvBN(width // 2, width, 3, 1, int8=int8)
         self._stages = []
         ch, idx = width, 0
         for i, n_blocks in enumerate(stage_sizes):
@@ -93,7 +119,7 @@ class ResNet(nn.Module):
             for j in range(n_blocks):
                 strides = 2 if (j == 0 and i > 0) else 1
                 name = f"BottleneckBlock_{idx}"
-                self.add_module(name, BottleneckBlock(ch, width * 2**i, strides))
+                self.add_module(name, BottleneckBlock(ch, width * 2**i, strides, int8=int8))
                 ch = width * 2**i * 4
                 names.append(name)
                 idx += 1
@@ -102,7 +128,10 @@ class ResNet(nn.Module):
 
     def forward(self, x):
         x = self._ConvBN_2(self._ConvBN_1(self._ConvBN_0(x)))
-        x = F.max_pool2d(x, 3, 2, 1)
+        if isinstance(x, QT):
+            x = QT(max_pool_codes(x.q, 3, 2, 1), x.s)   # monotone: pool the codes
+        else:
+            x = F.max_pool2d(x, 3, 2, 1)
         feats = []
         recompute = self.remat and self.training and torch.is_grad_enabled()
         for names in self._stages:

@@ -17,6 +17,11 @@ scores, and the refined boxes. ``forward(train=True)`` needs train mode
 (``model.train()``: Flax's batch statistics in every BatchNorm); with
 ground truth it adds the denoising queries. The loss is
 :func:`rtdetr_loss` (``losses/hungarian.py``).
+
+``int8=True`` builds the PTQ serving model: the ResNet-vd backbone and the
+CCFF convs (``in_proj*``, the fusion stages, ``down3``/``down4``) run on int8
+codes, AIFI is an fp island (dequantized in, requantized out with
+``s_aifi_0``), and the encoder's outputs are dequantized for the fp decoder.
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ from torch import nn
 
 from ..ops.deformable_kernel import ms_deform_attn_fwd
 from ..ops.nms import stable_topk
-from .layers import MLP, CSPStage, ConvBNAct, PlainStage, lecun_normal_, upsample2x
+from ..quant import QT, dequantize, q_from_images, quantize_to, record_absmax, register_quant
+from .layers import MLP, CSPStage, ConvBNAct, PlainStage, concat, lecun_normal_, upsample2x
 from .resnet import ResNet
 
 LN_EPS = 1e-6  # Flax LayerNorm's epsilon (torch's default is 1e-5)
@@ -123,21 +129,23 @@ class HybridEncoder(nn.Module):
     with full-width PlainStages, ``arch="csp"`` with CSP stages."""
 
     def __init__(self, in_channels: Sequence[int], hidden_dim: int = 256,
-                 num_heads: int = 8, arch: str = "tpu"):
+                 num_heads: int = 8, arch: str = "tpu", int8: bool = False):
         super().__init__()
         c = hidden_dim
         for i, cin in enumerate(in_channels):
-            self.add_module(f"in_proj{i}", ConvBNAct(cin, c, 1, act=False))
+            self.add_module(f"in_proj{i}", ConvBNAct(cin, c, 1, act=False, int8=int8))
         self.aifi = EncoderLayer(c, num_heads, ffn_dim=4 * c)
         for name in ("td4", "td3", "bu4", "bu5"):
             if arch == "tpu":
-                self.add_module(name, PlainStage(2 * c, c, 2, shortcut=False))
+                self.add_module(name, PlainStage(2 * c, c, 2, shortcut=False, int8=int8))
             elif arch == "csp":
-                self.add_module(name, CSPStage(2 * c, c, 3, shortcut=False))
+                self.add_module(name, CSPStage(2 * c, c, 3, shortcut=False, int8=int8))
             else:
                 raise ValueError(f"arch must be 'tpu' or 'csp', got {arch!r}")
-        self.down3 = ConvBNAct(c, c, 3, strides=2)
-        self.down4 = ConvBNAct(c, c, 3, strides=2)
+        self.down3 = ConvBNAct(c, c, 3, strides=2, int8=int8)
+        self.down4 = ConvBNAct(c, c, 3, strides=2, int8=int8)
+        if int8:
+            register_quant(self, "s_aifi_0", torch.ones(()))
         self._pos: "Dict[tuple, torch.Tensor]" = {}
 
     def _pos_embed(self, h, w, c, device):
@@ -148,13 +156,21 @@ class HybridEncoder(nn.Module):
 
     def forward(self, feats):
         proj = [getattr(self, f"in_proj{i}")(f) for i, f in enumerate(feats)]
-        b, c, h5, w5 = proj[2].shape
-        tokens = self.aifi(tokens_of(proj[2]), self._pos_embed(h5, w5, c, proj[2].device))
+        quant = isinstance(proj[2], QT)
+        # AIFI is an fp island of the int8 encoder: dequantize in, requantize
+        # out with a calibrated scale, so the CCFF below stays int8.
+        p5_in = dequantize(proj[2]) if quant else proj[2]
+        b, c, h5, w5 = p5_in.shape
+        tokens = self.aifi(tokens_of(p5_in), self._pos_embed(h5, w5, c, p5_in.device))
         p5 = tokens.transpose(1, 2).reshape(b, c, h5, w5)
-        td4 = self.td4(torch.cat([upsample2x(p5), proj[1]], dim=1))
-        td3 = self.td3(torch.cat([upsample2x(td4), proj[0]], dim=1))
-        bu4 = self.bu4(torch.cat([self.down3(td3), td4], dim=1))
-        bu5 = self.bu5(torch.cat([self.down4(bu4), p5], dim=1))
+        if quant:
+            p5 = QT(quantize_to(p5.float(), self.s_aifi_0), self.s_aifi_0)
+        else:
+            record_absmax(self, "aifi0_absmax", p5)
+        td4 = self.td4(concat([upsample2x(p5), proj[1]]))
+        td3 = self.td3(concat([upsample2x(td4), proj[0]]))
+        bu4 = self.bu4(concat([self.down3(td3), td4]))
+        bu5 = self.bu5(concat([self.down4(bu4), p5]))
         return [td3, bu4, bu5]
 
 
@@ -322,15 +338,19 @@ class RTDETRDetector(nn.Module):
                  num_denoising_groups: int = 2,
                  backbone_depths: "Tuple[int, ...]" = (3, 4, 6, 3), arch: str = "tpu",
                  dtype: torch.dtype = torch.float32, remat: bool = False,
-                 generator: "torch.Generator | None" = None):
+                 generator: "torch.Generator | None" = None, int8: bool = False):
         super().__init__()
+        if int8 and dtype != torch.float32:
+            raise ValueError("the int8 model keeps dtype float32 (its scales are float32)")
         c = hidden_dim
+        self.int8 = int8
         self.num_classes, self.hidden_dim, self.num_queries = num_classes, c, num_queries
         self.num_decoder_layers = num_decoder_layers
         self.num_denoising_groups = num_denoising_groups
         self.dtype = dtype
-        self.backbone = ResNet(stage_sizes=backbone_depths, remat=remat)
-        self.encoder = HybridEncoder(self.backbone.out_channels[1:], c, num_heads, arch)
+        self.backbone = ResNet(stage_sizes=backbone_depths, remat=remat, int8=int8)
+        self.encoder = HybridEncoder(self.backbone.out_channels[1:], c, num_heads, arch,
+                                     int8=int8)
         self.enc_score = nn.Linear(c, num_classes)
         self.enc_bbox = MLP(c, c, 4, num_layers=3)
         self.query_proj = MLP(c, c, c, num_layers=2)
@@ -382,9 +402,11 @@ class RTDETRDetector(nn.Module):
                 "mode: BatchNorm follows the mode, so call model.train() or model.eval() first"
             )
         b, img_h, img_w, _ = images.shape
-        x = images.to(self.dtype).permute(0, 3, 1, 2)
+        x = q_from_images(images) if self.int8 else images.to(self.dtype).permute(0, 3, 1, 2)
         _, c3, c4, c5 = self.backbone(x)
         feats = self.encoder([c3, c4, c5])
+        if self.int8:
+            feats = [dequantize(f) for f in feats]
         level_shapes = [tuple(f.shape[2:]) for f in feats]
         memory = torch.cat([tokens_of(f) for f in feats], dim=1)   # (B, ΣHW, C)
 

@@ -1,11 +1,14 @@
-"""YOLO-class detector (PyTorch), fp path: CSP/Plain backbone, PAN neck,
-anchor-free decoupled head with distribution-focal box regression.
+"""YOLO-class detector (PyTorch): CSP/Plain backbone, PAN neck,
+anchor-free decoupled head with distribution-focal box regression; fp, or
+int8 for serving (``int8=True``, ``int8_fp_box=True``).
 
 Counterpart of ``multimodal_moe_tpu/models/yolo.py``. The public input is
 NHWC like the JAX model's; inside, tensors are NCHW, and the head maps are
 permuted back to NHWC before they are flattened so that anchors, logits and
 boxes come out level-major and row-major exactly as the JAX model orders
-them.
+them. The int8 model quantizes the images to codes at 1/127 and runs every
+conv on int8 codes (``quant.QT``) up to the prediction convs
+(:class:`QPredConv`), whose fp32 outputs decode as the fp model's.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.int8_conv import int8_conv2d
+from ..quant import QT, dequantize, q_from_images
 from .layers import (
     AutoNamer,
     CSPStage,
@@ -24,7 +29,9 @@ from .layers import (
     SPPF,
     SpaceToDepthStem,
     add_auto,
+    concat,
     lecun_normal_,
+    register_conv_quant,
     upsample2x,
 )
 
@@ -68,37 +75,38 @@ class Backbone(nn.Module):
     depth stem and PlainStages at /4 and /8; ``arch="csp"``: two strided
     convs and CSP at every level."""
 
-    def __init__(self, variant: str = "s", arch: str = "tpu"):
+    def __init__(self, variant: str = "s", arch: str = "tpu", int8: bool = False):
         super().__init__()
         ch = scaled_channels(variant)
         depths = scaled_depths(variant)
         nm = AutoNamer()
         add = lambda m: add_auto(self, nm, m)  # noqa: E731
+        q = dict(int8=int8)
         if arch == "tpu":
             self._to_p3 = [
-                add(SpaceToDepthStem(3, ch[1], ratio=4)),               # /4
-                add(PlainStage(ch[1], ch[1], depths[0])),
-                add(ConvBNAct(ch[1], ch[2], 3, strides=2)),             # /8
-                add(PlainStage(ch[2], ch[2], depths[1])),
+                add(SpaceToDepthStem(3, ch[1], ratio=4, **q)),          # /4
+                add(PlainStage(ch[1], ch[1], depths[0], **q)),
+                add(ConvBNAct(ch[1], ch[2], 3, strides=2, **q)),        # /8
+                add(PlainStage(ch[2], ch[2], depths[1], **q)),
             ]
         elif arch == "csp":
             self._to_p3 = [
-                add(ConvBNAct(3, ch[0], 3, strides=2)),                 # /2
-                add(ConvBNAct(ch[0], ch[1], 3, strides=2)),             # /4
-                add(CSPStage(ch[1], ch[1], depths[0])),
-                add(ConvBNAct(ch[1], ch[2], 3, strides=2)),             # /8
-                add(CSPStage(ch[2], ch[2], depths[1])),
+                add(ConvBNAct(3, ch[0], 3, strides=2, **q)),            # /2
+                add(ConvBNAct(ch[0], ch[1], 3, strides=2, **q)),        # /4
+                add(CSPStage(ch[1], ch[1], depths[0], **q)),
+                add(ConvBNAct(ch[1], ch[2], 3, strides=2, **q)),        # /8
+                add(CSPStage(ch[2], ch[2], depths[1], **q)),
             ]
         else:
             raise ValueError(f"arch must be 'tpu' or 'csp', got {arch!r}")
         self._to_p4 = [
-            add(ConvBNAct(ch[2], ch[3], 3, strides=2)),                 # /16
-            add(CSPStage(ch[3], ch[3], depths[2])),
+            add(ConvBNAct(ch[2], ch[3], 3, strides=2, **q)),            # /16
+            add(CSPStage(ch[3], ch[3], depths[2], **q)),
         ]
         self._to_p5 = [
-            add(ConvBNAct(ch[3], ch[4], 3, strides=2)),                 # /32
-            add(CSPStage(ch[4], ch[4], depths[3])),
-            add(SPPF(ch[4], ch[4])),
+            add(ConvBNAct(ch[3], ch[4], 3, strides=2, **q)),            # /32
+            add(CSPStage(ch[4], ch[4], depths[3], **q)),
+            add(SPPF(ch[4], ch[4], **q)),
         ]
 
     def forward(self, x):
@@ -111,52 +119,79 @@ class Backbone(nn.Module):
 class PANNeck(nn.Module):
     """Top-down + bottom-up path aggregation over the three levels."""
 
-    def __init__(self, variant: str = "s", arch: str = "tpu"):
+    def __init__(self, variant: str = "s", arch: str = "tpu", int8: bool = False):
         super().__init__()
         ch = scaled_channels(variant)
         depth = scaled_depths(variant)[3]
         nm = AutoNamer()
         add = lambda m: add_auto(self, nm, m)  # noqa: E731
-        self._t4 = add(CSPStage(ch[4] + ch[3], ch[3], depth, shortcut=False))
+        kw = dict(shortcut=False, int8=int8)
+        self._t4 = add(CSPStage(ch[4] + ch[3], ch[3], depth, **kw))
         if arch == "tpu":
-            self._n3 = add(PlainStage(ch[3] + ch[2], ch[2], depth, shortcut=False))
+            self._n3 = add(PlainStage(ch[3] + ch[2], ch[2], depth, **kw))
         else:
-            self._n3 = add(CSPStage(ch[3] + ch[2], ch[2], depth, shortcut=False))
-        self._down3 = add(ConvBNAct(ch[2], ch[2], 3, strides=2))
-        self._n4 = add(CSPStage(ch[2] + ch[3], ch[3], depth, shortcut=False))
-        self._down4 = add(ConvBNAct(ch[3], ch[3], 3, strides=2))
-        self._n5 = add(CSPStage(ch[3] + ch[4], ch[4], depth, shortcut=False))
+            self._n3 = add(CSPStage(ch[3] + ch[2], ch[2], depth, **kw))
+        self._down3 = add(ConvBNAct(ch[2], ch[2], 3, strides=2, int8=int8))
+        self._n4 = add(CSPStage(ch[2] + ch[3], ch[3], depth, **kw))
+        self._down4 = add(ConvBNAct(ch[3], ch[3], 3, strides=2, int8=int8))
+        self._n5 = add(CSPStage(ch[3] + ch[4], ch[4], depth, **kw))
 
     def forward(self, feats):
         p3, p4, p5 = feats
         m = lambda name, x: getattr(self, name)(x)  # noqa: E731
-        t4 = m(self._t4, torch.cat([upsample2x(p5), p4], dim=1))       # top-down
-        n3 = m(self._n3, torch.cat([upsample2x(t4), p3], dim=1))
-        n4 = m(self._n4, torch.cat([m(self._down3, n3), t4], dim=1))   # bottom-up
-        n5 = m(self._n5, torch.cat([m(self._down4, n4), p5], dim=1))
+        t4 = m(self._t4, concat([upsample2x(p5), p4]))                   # top-down
+        n3 = m(self._n3, concat([upsample2x(t4), p3]))
+        n4 = m(self._n4, concat([m(self._down3, n3), t4]))               # bottom-up
+        n5 = m(self._n5, concat([m(self._down4, n4), p5]))
         return [n3, n4, n5]
 
 
-class DetectHead(nn.Module):
-    """Per level, a box branch (4×REG_MAX DFL logits) and a class branch."""
+class QPredConv(nn.Module):
+    """int8 1×1 prediction conv: quantized weights, fp32 output (read by the
+    decode and NMS directly, no requant). It takes the place, and the name,
+    of the fp ``nn.Conv2d``."""
 
-    def __init__(self, num_classes: int = 1, variant: str = "s"):
+    def __init__(self, cin: int, features: int):
+        super().__init__()
+        register_conv_quant(self, cin, features, 1, requant=False)
+
+    def forward(self, x: QT) -> torch.Tensor:
+        y32 = int8_conv2d(x.q, self.w_q)
+        c = self.s_w.shape[0]
+        return y32.float() * (x.s * self.s_w).view(1, c, 1, 1) + self.b.view(1, c, 1, 1)
+
+
+class DetectHead(nn.Module):
+    """Per level, a box branch (4×REG_MAX DFL logits) and a class branch.
+
+    ``int8``: both branches on int8 codes; ``fp_box`` keeps the box branch
+    fp on the dequantized features (the strict-IoU accuracy mode)."""
+
+    def __init__(self, num_classes: int = 1, variant: str = "s", int8: bool = False,
+                 fp_box: bool = False):
         super().__init__()
         ch = scaled_channels(variant)
         box_ch = max(16, ch[2] // 4, 4 * REG_MAX)
         cls_ch = max(ch[2], min(num_classes, 100))
+        self.fp_box = fp_box
+        box_q = int8 and not fp_box
+
+        def pred(cin, n, quant):
+            return QPredConv(cin, n) if quant else nn.Conv2d(cin, n, 1)
+
         for i, cin in enumerate(ch[2:5]):
-            self.add_module(f"box{i}_conv1", ConvBNAct(cin, box_ch, 3))
-            self.add_module(f"box{i}_conv2", ConvBNAct(box_ch, box_ch, 3))
-            self.add_module(f"box{i}_pred", nn.Conv2d(box_ch, 4 * REG_MAX, 1))
-            self.add_module(f"cls{i}_conv1", ConvBNAct(cin, cls_ch, 3))
-            self.add_module(f"cls{i}_conv2", ConvBNAct(cls_ch, cls_ch, 3))
-            self.add_module(f"cls{i}_pred", nn.Conv2d(cls_ch, num_classes, 1))
+            self.add_module(f"box{i}_conv1", ConvBNAct(cin, box_ch, 3, int8=box_q))
+            self.add_module(f"box{i}_conv2", ConvBNAct(box_ch, box_ch, 3, int8=box_q))
+            self.add_module(f"box{i}_pred", pred(box_ch, 4 * REG_MAX, box_q))
+            self.add_module(f"cls{i}_conv1", ConvBNAct(cin, cls_ch, 3, int8=int8))
+            self.add_module(f"cls{i}_conv2", ConvBNAct(cls_ch, cls_ch, 3, int8=int8))
+            self.add_module(f"cls{i}_pred", pred(cls_ch, num_classes, int8))
 
     def forward(self, feats):
         box_out, cls_out = [], []
         for i, f in enumerate(feats):
-            box_out.append(_run(self, [f"box{i}_conv1", f"box{i}_conv2", f"box{i}_pred"], f))
+            fb = dequantize(f) if self.fp_box and isinstance(f, QT) else f
+            box_out.append(_run(self, [f"box{i}_conv1", f"box{i}_conv2", f"box{i}_pred"], fb))
             cls_out.append(_run(self, [f"cls{i}_conv1", f"cls{i}_conv2", f"cls{i}_pred"], f))
         return box_out, cls_out
 
@@ -223,17 +258,26 @@ class YoloDetector(nn.Module):
     ``dtype`` is the compute (and weight) type; logits and boxes come out in
     float32. Weights are initialised as Flax initialises them (LeCun normal
     kernels, zero biases, class prior bias −4.6) from ``generator``.
+
+    ``int8`` builds the PTQ serving model: its quant tensors (zeros and
+    ones until ``quant.load_serving`` fills them) replace the trunk's and the
+    head's convs; ``int8_fp_box`` keeps the box branch fp. The int8 model is
+    float32 outside its int8 convs.
     """
 
     def __init__(self, num_classes: int = 1, variant: str = "s",
                  dtype: torch.dtype = torch.float32, arch: str = "tpu",
-                 generator: "torch.Generator | None" = None):
+                 generator: "torch.Generator | None" = None, int8: bool = False,
+                 int8_fp_box: bool = False):
         super().__init__()
+        if int8 and dtype != torch.float32:
+            raise ValueError("the int8 model keeps dtype float32 (its scales are float32)")
         self.num_classes = num_classes
         self.dtype = dtype
-        self.backbone = Backbone(variant, arch)
-        self.neck = PANNeck(variant, arch)
-        self.head = DetectHead(num_classes, variant)
+        self.int8 = int8
+        self.backbone = Backbone(variant, arch, int8=int8)
+        self.neck = PANNeck(variant, arch, int8=int8)
+        self.head = DetectHead(num_classes, variant, int8=int8, fp_box=int8 and int8_fp_box)
         self._init_weights(generator)
         self.to(dtype)
         self._anchor_cache: "Dict[tuple, Tuple[torch.Tensor, torch.Tensor]]" = {}
@@ -262,8 +306,13 @@ class YoloDetector(nn.Module):
         ``model.eval()``): BatchNorm follows the mode, as Flax's follows
         ``train``."""
         self._check_mode(train)
-        x = images.to(self.dtype).permute(0, 3, 1, 2)
-        return self._head_outputs(self.neck(self.backbone(x)), images)
+        return self._head_outputs(self.neck(self.backbone(self._input(images))), images)
+
+    def _input(self, images: torch.Tensor):
+        """NHWC images → the trunk's input: NCHW in ``dtype``, or int8 codes."""
+        if self.int8:
+            return q_from_images(images)
+        return images.to(self.dtype).permute(0, 3, 1, 2)
 
     def _check_mode(self, train) -> None:
         if not isinstance(train, bool):

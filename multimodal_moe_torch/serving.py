@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ._device import model_device
 from .models.yolo import decode_boxes
 from .ops.nms import NEG_INF, NmsResult, batched_nms, stable_topk
 
@@ -100,7 +101,7 @@ def make_serving_step(
     if tail not in ("full", "topk"):
         raise ValueError(f"tail must be 'full' or 'topk', got {tail!r}")
     context_aware = getattr(model, "context_aware", False)
-    device = next(model.parameters()).device
+    device = model_device(model)
     nms_kw = dict(
         iou_threshold=iou_threshold, score_threshold=score_threshold,
         max_det=max_det, early_exit=early_exit,

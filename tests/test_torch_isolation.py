@@ -17,7 +17,8 @@ REQUIRED = ("multimodal_moe_torch.losses.hungarian", "multimodal_moe_torch.ops.a
             "multimodal_moe_torch.train.detection", "multimodal_moe_torch.train.evaluator",
             "multimodal_moe_torch.ops.coco_map", "multimodal_moe_torch.ops.preprocess",
             "multimodal_moe_torch.loading", "multimodal_moe_torch.train.artifacts",
-            "multimodal_moe_torch.utils.profiler")
+            "multimodal_moe_torch.utils.profiler", "multimodal_moe_torch.quant",
+            "multimodal_moe_torch.ops.int8_conv")
 
 _CHILD = """
 import importlib, pkgutil, sys

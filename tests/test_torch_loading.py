@@ -79,9 +79,19 @@ def test_build_detector_matches_jax_layout(cfg):
 
 
 def test_build_detector_int8_waits_for_a3():
-    for kw in ({"int8": True}, {"fp_box": True}):
-        with pytest.raises(NotImplementedError, match="A3"):
-            tload.build_detector({"family": "yolo"}, **kw)
+    """Since A3 (int8 serving) came, ``int8`` builds the int8 model and
+    ``int8, fp_box`` its fp-box twin, as JAX's ``build_detector`` does;
+    ``fp_box`` alone leaves the fp model."""
+    cfg = {"family": "yolo", "variant": "n"}
+    _, fp = tload.build_detector(cfg, fp_box=True)
+    assert not fp.int8 and isinstance(fp.head.box0_pred, torch.nn.Conv2d)
+    _, q = tload.build_detector(cfg, int8=True)
+    assert q.int8 and not list(q.parameters()) and q.head.box0_conv1.w_q.dtype == torch.int8
+    _, qb = tload.build_detector(cfg, int8=True, fp_box=True)
+    assert qb.int8 and isinstance(qb.head.box0_pred, torch.nn.Conv2d)
+    assert qb.head.cls0_conv1.w_q.dtype == torch.int8
+    _, jq = jload.build_detector(cfg, int8=True, fp_box=True)
+    assert jq.int8 and jq.int8_fp_box
 
 
 def _saved_run(tmp_path):

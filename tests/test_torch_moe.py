@@ -21,6 +21,7 @@ import torch
 
 from _torch_parity import load_flax
 from multimodal_moe_torch.models import moe as tm
+from multimodal_moe_torch.quant import QT
 from multimodal_moe_tpu.data.solar import NUM_SOLAR_BINS
 from multimodal_moe_tpu.models import moe as jm
 from multimodal_moe_tpu.ops import moe_kernels as jk
@@ -236,7 +237,9 @@ def test_fused_route_rounds_capacity_and_backpropagates(ffn_problem):
 
 
 def test_unported_modes_raise():
-    """int8 tokens and unknown modes raise; ``gmm`` (ported) runs."""
+    """Raw int8 tokens and unknown modes raise; ``gmm`` (ported) runs. Since
+    the w8a8 sweep came (``int8=True``), int8 tokens are a ``quant.QT`` to an
+    int8 module: a bare int8 tensor, or a QT to an fp module, is refused."""
     m = tm.MoEFFN(D, E, dispatch="gmm", generator=torch.Generator().manual_seed(0))
     x = torch.randn(8, D, generator=torch.Generator().manual_seed(1))
     c = torch.zeros(8, dtype=torch.long)
@@ -244,8 +247,10 @@ def test_unported_modes_raise():
     assert out.shape == (8, D) and torch.isfinite(out).all()
     assert float(aux["expert_load"].sum()) == pytest.approx(K)
     m.dispatch = "sweep"
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
+    with pytest.raises(TypeError, match="quant.QT"):
         m(torch.zeros(8, D, dtype=torch.int8), c)
+    with pytest.raises(TypeError, match="int8=True"):
+        m(QT(torch.zeros(8, D, dtype=torch.int8), torch.ones(())), c)
     with pytest.raises(ValueError, match="dispatch must be"):
         tm.MoEFFN(D, E, dispatch="einsum")
 
