@@ -220,6 +220,30 @@ Phases (each prints one JSON line):
                YOLO-s run dir (the npz written by the first load, reused by the
                second; four batches of 16, each tail bitwise against the plain
                tail on the CPU, B1 once a batch, 0 < mAP50 < 1).
+19. data    -- the data path at 704x1248, B=16. The host's libraries first
+               (``host_lacks``: pandas, pyarrow, PIL, g++, libjpeg). With all
+               five: a corpus of 64 distinct pre-resized 4:2:0 JPEGs (PIL)
+               cycled by a parquet of 4,032 rows and split CSVs;
+               ``ResidentDetectionLoader(store="yuv420")`` over the
+               4,000-frame train split (5.27 GB of planes on the card:
+               ``decode_s``, ``upload_s``, ``upload_gb_s``, bytes, peak
+               memory), a B=16 gather + conversion timed (``gather_ms``,
+               median of 20) and bitwise equal to ``yuv420_to_rgb_u8`` of the
+               same planes on the CPU; ``DetectionLoader(store="yuv420",
+               num_workers=8)`` over 160 frames (``loader_img_s``), through
+               ``prefetch_to_device`` (``h2d_gb_s``), each ``image`` bitwise
+               and the targets equal to the resident loader's; ``store="rgb"``'s
+               ``loader_img_s``; then ``DetectionTrainer.fit`` for one epoch of
+               MoE-YOLO-s (``gmm``, TF32 on) over a resident and a streaming
+               160-frame split with ``make_ema_val_fn`` over a streaming
+               32-frame val split (B=12, the last batch padded):
+               ``fit_step_ms`` beside the ``moe_yolo_train`` step; B3's 18
+               launches a step, B1 once a val batch; finite losses;
+               ``fit_progress.json`` and ``weights/last`` written. Where the
+               host cannot decode the corpus to planes, the same device half
+               on numpy planes and targets at the same sizes (the rgb loader
+               and the val split still from the corpus where PIL, pandas and
+               pyarrow are there).
 
 """
 
@@ -250,6 +274,9 @@ import torch.nn.functional as F  # noqa: E402
 
 from multimodal_moe_torch import _build, loading, quant  # noqa: E402
 from multimodal_moe_torch._device import model_device  # noqa: E402
+from multimodal_moe_torch.data import native_decode as data_native  # noqa: E402
+from multimodal_moe_torch.data import pipeline as data_pipeline  # noqa: E402
+from multimodal_moe_torch.data import resident as data_resident  # noqa: E402
 from multimodal_moe_torch.losses import hungarian as hungarian_module  # noqa: E402
 from multimodal_moe_torch.losses import tal as tal_module  # noqa: E402
 from multimodal_moe_torch.models import layers as layers_module  # noqa: E402
@@ -3381,6 +3408,346 @@ def phase_int8(dev, smi: str, bf16: dict) -> dict:
     return rec
 
 
+DATA_FRAMES = 4000       # the resident split: 80 % of the protocol's 5,000 frames
+DATA_DISTINCT = 64       # distinct JPEGs the corpus cycles over
+DATA_FIT_FRAMES = 160    # fit has no step limit: 10 steps of B=16
+DATA_VAL_FRAMES, DATA_VAL_B = 32, 12   # three val batches, the last one padded
+DATA_WORKERS = 8         # scripts/train_moe.py:43 --workers
+DATA_MAX_BOXES = 96
+DATA_SOLAR = ["night(<-6)", "twilight(-6..0)", "low_sun(0..15)", "mid_sun(15..45)",
+              "high_sun(>45)", "missing"]
+
+
+def plane_bytes() -> int:
+    """One frame as 4:2:0 planes: 1,317,888 B at 704x1248."""
+    return IMG_H * IMG_W * 3 // 2
+
+
+def host_lacks() -> list:
+    """Which of pandas, pyarrow, PIL, g++ and libjpeg this host lacks (the
+    last shows as a native decoder that cannot be built)."""
+    import importlib.util
+    import shutil
+
+    from multimodal_moe_torch.data import native_decode
+
+    lacks = [m for m in ("pandas", "pyarrow", "PIL") if importlib.util.find_spec(m) is None]
+    if shutil.which("g++") is None:
+        lacks.append("g++")
+    elif not native_decode.native_available():
+        lacks.append("libjpeg")
+    return lacks
+
+
+def data_frames(n: int, seed: int) -> "tuple[list, list]":
+    """``n`` distinct smooth 704x1248 RGB frames, each with 1-6 figure-sized
+    rectangles, and their boxes (xyxy)."""
+    rng = np.random.default_rng(seed)
+    yy = np.linspace(0.0, 1.0, IMG_H, dtype=np.float32)[:, None, None]
+    xx = np.linspace(0.0, 1.0, IMG_W, dtype=np.float32)[None, :, None]
+    frames, boxes = [], []
+    for _ in range(n):
+        a, b, c = (rng.uniform(-120, 120, 3).astype(np.float32) for _ in range(3))
+        img = np.clip(a * yy + b * xx + c + 128.0, 0, 255).astype(np.uint8)
+        fb = []
+        for _ in range(int(rng.integers(1, 7))):
+            w, h = int(rng.integers(IMG_W // 60, IMG_W // 20)), int(rng.integers(IMG_H // 14, IMG_H // 5))
+            x0, y0 = int(rng.integers(0, IMG_W - w)), int(rng.integers(0, IMG_H - h))
+            img[y0 : y0 + h, x0 : x0 + w] = rng.integers(0, 256, 3)
+            fb.append([float(x0), float(y0), float(x0 + w), float(y0 + h)])
+        frames.append(img)
+        boxes.append(fb)
+    return frames, boxes
+
+
+def write_data_corpus(root: Path, seed: int = 40) -> dict:
+    """The phase's corpus: ``DATA_DISTINCT`` pre-resized 4:2:0 JPEGs at
+    704x1248 (PIL, ``subsampling=2``), a parquet of ``DATA_FRAMES`` +
+    ``DATA_VAL_FRAMES`` rows cycling over them (every solar label, some
+    boxes unclear) and split CSVs: train (the first ``DATA_FRAMES``), fit
+    (the first ``DATA_FIT_FRAMES`` of those) and val (the rest)."""
+    import pandas as pd
+    from PIL import Image
+
+    root.mkdir(parents=True)
+    frames, boxes = data_frames(DATA_DISTINCT, seed)
+    paths = []
+    for i, img in enumerate(frames):
+        paths.append(root / f"frame_{i:02d}.jpg")
+        Image.fromarray(img).save(paths[-1], quality=90, subsampling=2)
+    rng = np.random.default_rng(seed + 1)
+    n = DATA_FRAMES + DATA_VAL_FRAMES
+    rows = [{"frame_id": f"{i:06d}", "resized_image_path": str(paths[i % DATA_DISTINCT]),
+             "xyxy_bboxes": boxes[i % DATA_DISTINCT],
+             "ped_unclear_list": [bool(u) for u in rng.random(len(boxes[i % DATA_DISTINCT])) < 0.2],
+             "ped_present": True, "solar_context_bin": DATA_SOLAR[i % len(DATA_SOLAR)]}
+            for i in range(n)]
+    pd.DataFrame(rows).to_parquet(root / "frames.parquet")
+    splits = {"train": range(DATA_FRAMES), "fit": range(DATA_FIT_FRAMES), "val": range(DATA_FRAMES, n)}
+    for name, ids in splits.items():
+        (root / f"{name}_ids.csv").write_text("frame_id\n" + "\n".join(f"{i:06d}" for i in ids) + "\n")
+    return {"parquet": root / "frames.parquet", **{k: root / f"{k}_ids.csv" for k in splits}}
+
+
+def numpy_split(n: int, seed: int) -> dict:
+    """The host half's arrays made with numpy, for a host that cannot decode
+    the corpus to planes: ``n`` frames cycling over ``DATA_DISTINCT``
+    distinct 4:2:0 plane sets, their boxes and solar bins."""
+    frames, boxes = data_frames(DATA_DISTINCT, seed)
+    y = np.stack([f[..., 0] for f in frames])
+    cb = np.stack([f[::2, ::2, 1] for f in frames])
+    cr = np.stack([f[1::2, 1::2, 2] for f in frames])
+    gt = np.zeros((DATA_DISTINCT, DATA_MAX_BOXES, 4), np.float32)
+    mask = np.zeros((DATA_DISTINCT, DATA_MAX_BOXES), bool)
+    for i, fb in enumerate(boxes):
+        gt[i, : len(fb)], mask[i, : len(fb)] = fb, True
+    cyc = np.arange(n) % DATA_DISTINCT
+    return {"y": y[cyc], "cb": cb[cyc], "cr": cr[cyc], "gt_boxes": gt[cyc], "gt_mask": mask[cyc],
+            "gt_labels": np.zeros((n, DATA_MAX_BOXES), np.int32), "label": np.ones(n, np.int32),
+            "solar_bin": (np.arange(n) % len(DATA_SOLAR)).astype(np.int32)}
+
+
+class HostPlaneLoader:
+    """Host batches of numpy planes and targets as a ``store="yuv420"``
+    ``DetectionLoader`` yields them (its epoch order and zero padding), for
+    a host without the native decoder."""
+
+    def __init__(self, arrays: dict, batch_size: int, *, shuffle=False, seed=0, drop_last=True):
+        self.arrays, self.batch_size = arrays, batch_size
+        self.shuffle, self.seed, self.drop_last, self._epoch = shuffle, seed, drop_last, 0
+        self._n = len(arrays["y"])
+
+    def __len__(self) -> int:
+        return self._n // self.batch_size if self.drop_last else -(-self._n // self.batch_size)
+
+    def __iter__(self):
+        order = data_pipeline.epoch_order(self._n, self.shuffle, self.seed, self._epoch)
+        self._epoch += 1
+        bs = self.batch_size
+        for b in range(len(self)):
+            idx = order[b * bs : (b + 1) * bs]
+            out = {k: v[idx] for k, v in self.arrays.items()}
+            pad = bs - len(idx)
+            out = {k: np.concatenate([v, np.zeros((pad,) + v.shape[1:], v.dtype)]) for k, v in out.items()}
+            out["batch_valid"] = np.arange(bs) < len(idx)
+            yield out
+
+
+def batch_bytes(batch: dict) -> int:
+    return sum(np.asarray(v).nbytes for k, v in batch.items() if k != "batch_valid")
+
+
+def cuda_ms_median(fn, reps: int, warmup: int = 2) -> float:
+    """Median milliseconds of ``fn()`` on the card, one pair of CUDA events a call."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def same_targets(a: dict, b: dict) -> bool:
+    return all(torch.equal(torch.as_tensor(a[k]).cpu(), torch.as_tensor(b[k]).cpu())
+               for k in data_resident.TARGET_KEYS)
+
+
+def fit_once(dev, loader, val_loader, run_dir: Path) -> dict:
+    """One epoch of ``DetectionTrainer.fit`` on MoE-YOLO-s (``gmm``, B=16,
+    TF32 on, the ``moe_yolo_train`` phase's trainer) over ``loader``, with
+    ``make_ema_val_fn`` over ``val_loader()``: the step time from the second
+    step to the validation, B3's launches in training (forward, transposed,
+    tgmm) and in validation, B1's."""
+    trainer = yolo_trainer(dev, YOLO_B, dispatch="gmm", epochs=1)
+    marks, fwd = [], []
+    step, loss_fn = trainer.train_step, trainer.loss_fn
+
+    def timed_step(state, batch, draws=None):
+        marks.append((time.perf_counter(), gmm_kernel.gmm_launches))
+        return step(state, batch, draws)
+
+    def counted_loss(*a, **k):
+        fwd.append(gmm_kernel.gmm_launches - marks[-1][1])
+        return loss_fn(*a, **k)
+
+    val = evaluator.make_ema_val_fn(trainer.model, val_loader)
+    at_val = {}
+
+    def counted_val(state):
+        torch.cuda.synchronize()
+        at_val.update(t=time.perf_counter(), gmm=gmm_kernel.gmm_launches,
+                      tgmm=gmm_kernel.tgmm_launches, nms=nms_kernel.nms_keep_launches)
+        metrics = val(state)
+        at_val.update(val_gmm=gmm_kernel.gmm_launches - at_val["gmm"],
+                      val_tgmm=gmm_kernel.tgmm_launches - at_val["tgmm"],
+                      val_nms=nms_kernel.nms_keep_launches - at_val["nms"])
+        return metrics
+
+    trainer.train_step, trainer.loss_fn = timed_step, counted_loss
+    gmm_kernel.gmm_launches = gmm_kernel.tgmm_launches = nms_kernel.nms_keep_launches = 0
+    t0 = time.perf_counter()
+    state, summary = trainer.fit(loader, run_dir=run_dir, val_fn=counted_val)
+    torch.cuda.synchronize()
+    steps = len(marks)
+    row = summary["history"][0]
+    rec = {"steps": steps, "fit_s": time.perf_counter() - t0,
+           "fit_step_ms": 1000.0 * (at_val["t"] - marks[1][0]) / (steps - 1),
+           "launches": {"gmm_forward": sum(fwd), "gmm_transposed": at_val["gmm"] - sum(fwd),
+                        "tgmm": at_val["tgmm"], "nms_keep": at_val["nms"],
+                        "val_gmm_forward": at_val["val_gmm"], "val_tgmm": at_val["val_tgmm"],
+                        "val_nms_keep": at_val["val_nms"]},
+           "loss": row.get("loss"), "val_map50": row.get("val_map50"),
+           "progress_written": (run_dir / "fit_progress.json").exists(),
+           "last_written": (run_dir / "weights" / "last").exists()}
+    del trainer, state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_fit(name: str, rec: dict, val_batches: int) -> None:
+    n = rec["steps"]
+    want = {"gmm_forward": 6 * n, "gmm_transposed": 6 * n, "tgmm": 6 * n, "nms_keep": 0,
+            "val_gmm_forward": 6 * val_batches, "val_tgmm": 0, "val_nms_keep": val_batches}
+    check(n == DATA_FIT_FRAMES // YOLO_B, f"{name}: fit took {n} steps")
+    check(rec["launches"] == want, f"{name}: launches {rec['launches']}, expected {want}")
+    check(rec["loss"] is not None and np.isfinite(rec["loss"]), f"{name}: finite loss")
+    check(rec["progress_written"] and rec["last_written"],
+          f"{name}: fit_progress.json and weights/last written")
+
+
+def phase_data(dev, smi: str, prestaged: dict) -> dict:
+    """The data path on the card: the resident store at 4,000 frames, the
+    gather and conversion, the streaming loaders through
+    ``prefetch_to_device``, and ``fit`` over a resident and a streaming
+    160-frame split with validation over a streaming 32-frame split. Where
+    the host cannot decode the corpus to planes, the device half runs on
+    numpy planes at the same sizes."""
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    lacks = host_lacks()
+    tables = not ({"pandas", "pyarrow", "PIL"} & set(lacks))
+    planes = not lacks
+    rec = {"phase": "data", "gpu": smi, "host_lacks": lacks,
+           "native_build_error": data_native.build_error,
+           "host_half": "corpus decoded by the native decoder" if planes else
+           "numpy planes and targets (the device half alone)",
+           "frames": DATA_FRAMES, "distinct_jpegs": DATA_DISTINCT, "batch": YOLO_B,
+           "img_hw": [IMG_H, IMG_W], "plane_bytes_per_frame": plane_bytes(), **tf32_state()}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        cfg = lambda split: data_pipeline.ZODMoEDataConfig(  # noqa: E731
+            frames_parquet=str(corpus["parquet"]), split_csv=str(corpus[split]),
+            img_h=IMG_H, img_w=IMG_W, max_boxes=DATA_MAX_BOXES)
+        corpus = write_data_corpus(root / "corpus") if tables else None
+        ds = {s: data_pipeline.ZODMoEVisionDataset(cfg(s)) for s in ("train", "fit", "val")} \
+            if tables else {}
+        t_host = time.perf_counter()
+        host = None if planes else numpy_split(DATA_FRAMES + DATA_VAL_FRAMES, seed=40)
+        rec["numpy_host_s"] = None if planes else time.perf_counter() - t_host
+
+        # The resident store at the protocol's size.
+        torch.cuda.reset_peak_memory_stats(dev)
+        mem0 = torch.cuda.memory_allocated(dev)
+        if planes:
+            resident = data_resident.ResidentDetectionLoader(
+                ds["train"], YOLO_B, num_workers=DATA_WORKERS, store="yuv420", device=dev)
+        else:
+            arrays = {k: v[:DATA_FRAMES] for k, v in host.items()}
+            resident = data_resident.ResidentDetectionLoader.from_arrays(arrays, YOLO_B, device=dev)
+        rec["resident"] = {**resident.timings, "bytes": resident.resident_bytes,
+                           "plane_bytes": DATA_FRAMES * plane_bytes(),
+                           "upload_gb_s": resident.resident_bytes / resident.timings["upload_s"] / 1e9,
+                           "device_bytes": torch.cuda.memory_allocated(dev) - mem0,
+                           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+        check(resident.resident_bytes >= DATA_FRAMES * plane_bytes(), "5.27 GB of planes resident")
+        first = DATA_FRAMES // 40   # frames 100-115 at 4,000
+        idx = torch.arange(first, first + YOLO_B, device=dev)
+        rec["resident"]["gather_ms"] = cuda_ms_median(lambda: resident.gather(idx), reps=20)
+        got = resident.gather(idx)
+        if planes:
+            y, cb, cr = data_native.decode_jpeg_files_yuv420(
+                [ds["train"].image_path(i) for i in range(first, first + YOLO_B)], IMG_H, IMG_W)
+        else:
+            y, cb, cr = (host[k][first : first + YOLO_B] for k in ("y", "cb", "cr"))
+        cpu = preprocess.yuv420_to_rgb_u8(*(torch.from_numpy(a) for a in (y, cb, cr)))
+        rec["resident"]["gather_bitwise"] = torch.equal(got["image"].cpu(), cpu)
+        check(rec["resident"]["gather_bitwise"], "gathered images equal the CPU conversion")
+
+        # The streaming loaders: the host alone, then through prefetch_to_device.
+        n_stream = DATA_FIT_FRAMES // YOLO_B
+        stream = {}
+        if planes:
+            t1 = time.perf_counter()
+            host_batches = list(data_pipeline.DetectionLoader(
+                ds["fit"], YOLO_B, num_workers=DATA_WORKERS, store="yuv420"))
+            stream["loader_img_s"] = DATA_FIT_FRAMES / (time.perf_counter() - t1)
+        else:
+            host_batches = list(HostPlaneLoader({k: v[:DATA_FIT_FRAMES] for k, v in host.items()},
+                                                YOLO_B))
+            stream["loader_img_s"] = None   # no native decoder on this host
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dev_batches = list(data_pipeline.prefetch_to_device(iter(host_batches), device=dev))
+        torch.cuda.synchronize()
+        h2d_s = time.perf_counter() - t1
+        stream["h2d_bytes"] = sum(batch_bytes(b) for b in host_batches)
+        stream["h2d_gb_s"] = stream["h2d_bytes"] / h2d_s / 1e9
+        same = [torch.equal(s["image"], r["image"]) and same_targets(s, r)
+                for s, r in zip(dev_batches, resident)]
+        stream["batches"], stream["bitwise_equal_to_resident"] = len(same), all(same)
+        check(len(same) == n_stream and all(same),
+              f"streaming batches equal the resident ones ({same})")
+        if tables:
+            t1 = time.perf_counter()
+            n_rgb = len(list(data_pipeline.DetectionLoader(
+                ds["fit"], YOLO_B, num_workers=DATA_WORKERS, store="rgb")))
+            stream["rgb_loader_img_s"] = n_rgb * YOLO_B / (time.perf_counter() - t1)
+        rec["streaming"] = stream
+        del resident, dev_batches, host_batches, got
+        torch.cuda.empty_cache()
+
+        # fit over a resident and a streaming 160-frame split.
+        if planes:
+            fit_resident = data_resident.ResidentDetectionLoader(
+                ds["fit"], YOLO_B, shuffle=True, num_workers=DATA_WORKERS, device=dev)
+            fit_stream = data_pipeline.DetectionLoader(
+                ds["fit"], YOLO_B, shuffle=True, num_workers=DATA_WORKERS, store="yuv420")
+        else:
+            fit_arrays = {k: v[:DATA_FIT_FRAMES] for k, v in host.items()}
+            fit_resident = data_resident.ResidentDetectionLoader.from_arrays(
+                fit_arrays, YOLO_B, shuffle=True, device=dev)
+            fit_stream = HostPlaneLoader(fit_arrays, YOLO_B, shuffle=True)
+        if tables:
+            val_loader = lambda: data_pipeline.DetectionLoader(  # noqa: E731
+                ds["val"], DATA_VAL_B, drop_last=False, num_workers=DATA_WORKERS,
+                store="yuv420" if planes else "rgb")
+        else:
+            val_arrays = {k: v[DATA_FRAMES:] for k, v in host.items()}
+            val_loader = lambda: HostPlaneLoader(val_arrays, DATA_VAL_B, drop_last=False)  # noqa: E731
+        val_batches = -(-DATA_VAL_FRAMES // DATA_VAL_B)
+        rec["val"] = {"frames": DATA_VAL_FRAMES, "batch": DATA_VAL_B, "batches": val_batches,
+                      "store": "yuv420" if planes else ("rgb" if tables else "numpy planes")}
+        rec["fit"] = {}
+        for name, loader in (("resident", fit_resident), ("streaming", fit_stream)):
+            rec["fit"][name] = fit_once(dev, loader, val_loader, root / f"fit_{name}")
+        rec["fit"]["prestaged_step_ms"] = prestaged["step_ms"]
+    del fit_resident, fit_stream, host
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    for name in ("resident", "streaming"):
+        check_fit(name, rec["fit"][name], val_batches)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -3462,10 +3829,19 @@ def main() -> int:
     phase_moe_yolo_train_fp32(dev)
     moe_train = phase_moe_yolo_train(dev, smi)
     phase_yolo_train(dev, smi)
+    data = phase_data(dev, smi, moe_train["dispatch"]["gmm"])
     counts = moe_train["dispatch"]["gmm"]["launches_per_step"]
     gmm_entries = gmm_kernel_entries(gmm_cases, {
         "gmm": counts["gmm_forward"], "gmm_transposed": counts["gmm"] - counts["gmm_forward"],
         "tgmm": counts["tgmm"]})
+    # The data phase's fits: B1 once a validation batch, B3 18 times a step
+    # (and the forward's 6 a validation batch).
+    fits = {name: data["fit"][name]["launches"] for name in ("resident", "streaming")}
+    nms_entry["data_launches"] = {name: c["val_nms_keep"] for name, c in fits.items()}
+    for entry in gmm_entries:
+        keys = {"gmm": ("gmm_forward", "val_gmm_forward"), "gmm_transposed": ("gmm_transposed",),
+                "tgmm": ("tgmm", "val_tgmm")}[entry["name"]]
+        entry["data_launches"] = {name: sum(c[k] for k in keys) for name, c in fits.items()}
     emit({"kernels": [nms_entry, deform_entry, bwd_entry, ffn_entry, *gmm_entries]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi_line(), flush=True)

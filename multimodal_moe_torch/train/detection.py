@@ -23,11 +23,17 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..data.pipeline import prefetch_to_device
 from ..losses.tal import yolo_loss
 from ..ops.augment import train_augment
 from .state import CheckpointManager, TrainState, make_train_state
 
 BATCH_KEYS = ("image", "gt_boxes", "gt_labels", "gt_mask", "solar_bin")
+
+
+def _step_keys(batch: dict) -> dict:
+    """The keys ``train_step`` reads (JAX's ``fit`` keeps the same five)."""
+    return {k: v for k, v in batch.items() if k in BATCH_KEYS}
 
 
 @dataclass
@@ -121,17 +127,9 @@ class DetectionTrainer:
         return state, {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
 
     def _to_device(self, batch) -> "Dict[str, torch.Tensor]":
-        """A host batch (numpy or CPU tensors) → the five keys on the device,
-        copied from pinned memory without blocking the host."""
-        out = {}
-        for k in BATCH_KEYS:
-            if k not in batch:
-                continue
-            t = torch.as_tensor(np.asarray(batch[k]) if not torch.is_tensor(batch[k]) else batch[k])
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out[k] = t
-        return out
+        """One batch through ``prefetch_to_device``, cut to the step's keys."""
+        (out,) = prefetch_to_device(iter([batch]), device=self.device, buffer_size=1)
+        return _step_keys(out)
 
     # -- loop ----------------------------------------------------------------
     def fit(self, train_loader: Iterable, *, run_dir: "str | Path",
@@ -189,8 +187,11 @@ class DetectionTrainer:
                         epoch_metrics.setdefault(k, []).append(float(v))
                 pending.clear()
 
-            for batch in train_loader:
-                state, metrics = self.train_step(state, self._to_device(batch))
+            # Host batches (RGB, or YUV420 planes that become ``image`` on
+            # the device) are copied ahead of the step; the resident
+            # loader's device batches pass through untouched.
+            for batch in prefetch_to_device(iter(train_loader), device=self.device):
+                state, metrics = self.train_step(state, _step_keys(batch))
                 pending.append(metrics)
                 if len(pending) >= fetch_every:
                     _flush()
