@@ -57,6 +57,38 @@ Phases (each prints one JSON line):
                ``model_flops_g``, and ``artifacts.collect_runtime_info``,
                which names the card (written with ``save_metrics_json`` and
                ``save_run_metadata_artifacts`` in a temp dir).
+4c. server  -- the serving deployment at 704x1248: YOLO-s, MoE-YOLO-s (E=4,
+               ``auto``) and RT-DETR r50vd run dirs (random weights from seed
+               0) loaded onto the card by ``loading.load_detector``, each
+               behind ``server.BatchingDetector`` (batch 16, pool 512, a 20 ms
+               window) and ``DetectorHTTPServer`` on 127.0.0.1:0, launch
+               counts from zero over the requests the server takes. Checks:
+               one request's detections equal to the raw step's on the same
+               zero-padded batch, whose tail is bitwise the plain tail on the
+               CPU on the same forward outputs; 16 requests in one device
+               call, each equal to the raw step on that batch; a response
+               independent of its batch neighbours (YOLO-s, MoE-YOLO-s); raw
+               and JPEG bodies over HTTP (PIL where the native decoder is
+               missing: ``native_jpeg``); MoE-YOLO-s's ``?context=3`` equal
+               to the raw step with that context; RT-DETR through the DETR
+               top-k tail; B1 launched once a YOLO / MoE device call and B4
+               six times an RT-DETR one; no ``errors``. The serve CLI, an
+               ``--int8 --calib-images`` serve CLI and the predict CLI (20
+               seeded JPEGs of odd sizes) as child processes started
+               together after the load, with no kernel built again: ``/healthz`` and one raw
+               ``/predict`` each, the fp one equal to the in-process answer
+               under torch's TF32 defaults (which the CLIs keep), one entry
+               an image with every box inside it. Printed: for YOLO-s under
+               closed-loop load (a 1 s ramp, then a timed window: raw bodies
+               at 1, 16 and 64 keep-alive clients, JPEG at 16 and 64; every
+               request must succeed) requests sent, answered and failed,
+               req/s, latency p50 and p99 (p99 from 100 latencies on), mean
+               batch fill, and the collector's split of a device call
+               (assembly, step to answers, wait); a 64-client raw window
+               under ``torch.profiler`` (the card's busy share, its top ops);
+               1 client with the handler's Nagle algorithm off;
+               ``last_step_ms``; the bare B=16 step by CUDA events; each
+               model's warmup seconds.
 5. ms_deform_fwd -- the deformable-attention kernel against its plain
                version, and the grid_sample formulation against the plain
                version, at the RT-DETR headline (B=16, levels
@@ -253,14 +285,19 @@ import contextlib
 import copy
 import ctypes
 import functools
+import http.client
+import io
 import json
 import os
+import queue
 import re
 import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -273,6 +310,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from multimodal_moe_torch import _build, loading, quant  # noqa: E402
+from multimodal_moe_torch import server as server_module  # noqa: E402
 from multimodal_moe_torch._device import model_device  # noqa: E402
 from multimodal_moe_torch.data import native_decode as data_native  # noqa: E402
 from multimodal_moe_torch.data import pipeline as data_pipeline  # noqa: E402
@@ -315,6 +353,8 @@ from multimodal_moe_torch.ops.nms import (  # noqa: E402
     batched_nms,
 )
 from multimodal_moe_torch.ops.nms import stable_topk  # noqa: E402
+from multimodal_moe_torch import serving as serving_module  # noqa: E402
+from multimodal_moe_torch.server import BatchingDetector, DetectorHTTPServer  # noqa: E402
 from multimodal_moe_torch.serving import (  # noqa: E402
     detr_topk_select,
     make_serving_step,
@@ -438,6 +478,20 @@ def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (calls * reps)
+
+
+def device_rows(prof) -> list:
+    """(name, ms on the card, calls) of each device op in a profile, the
+    longest first."""
+    rows = []
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        rows.append((e.key, us / 1e3, e.count))
+    return sorted(rows, key=lambda r: -r[1])
 
 
 def synthetic_candidates(b, n, num_classes, seed, dev, kind="synthetic"):
@@ -970,6 +1024,521 @@ def phase_evaluate(dev, smi: str) -> dict:
     return rec
 
 
+# --------------------------------------------------------------------------
+# the serving deployment: BatchingDetector behind HTTP, the CLIs
+# --------------------------------------------------------------------------
+
+SERVER_B, SERVER_WAIT_MS = 16, 20.0     # scripts/serve_detector.py's defaults
+# (raw bodies, concurrent clients, seconds measured after the ramp); no
+# JPEG level at 1 client: the host's decode shows at 16 and 64
+SERVER_LEVELS = ((True, 1, 3.0), (True, 16, 5.0), (False, 16, 5.0),
+                 (True, 64, 6.0), (False, 64, 6.0))
+SERVER_RAMP_S = 1.0                     # a level's first second, not counted
+SERVER_PROFILE_S = 3.0                  # the profiled 64-client raw window
+P99_MIN = 100                           # p99 from this many latencies on
+SERVER_IMAGES = 20                      # the predict CLI's JPEGs
+CLI_WAIT_S = 300                        # a child's start, or its run, at most
+# torch's own TF32 defaults, which the CLIs leave as they are
+TORCH_DEFAULT_TF32 = {"cudnn": True, "matmul": False}
+
+
+@contextlib.contextmanager
+def http_server(det):
+    """``det`` behind a ``DetectorHTTPServer`` on a free local port."""
+    httpd = DetectorHTTPServer(("127.0.0.1", 0), det)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield httpd.server_address[1]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+
+
+def http_post(port: int, body: bytes, query: str = "", raw: bool = True, conn=None) -> dict:
+    """POST ``body`` to ``/predict?query``; the JSON answer (status 200)."""
+    own = conn is None
+    conn = conn or http.client.HTTPConnection("127.0.0.1", port, timeout=CLI_WAIT_S)
+    try:
+        headers = {"Content-Type": "application/x-mmoe-raw"} if raw else {}
+        conn.request("POST", f"/predict{'?' + query if query else ''}", body=body,
+                     headers=headers)
+        resp = conn.getresponse()
+        data = resp.read()
+        check(resp.status == 200, f"POST /predict answered {resp.status}: {data[:200]!r}")
+        return json.loads(data)
+    finally:
+        if own:
+            conn.close()
+
+
+def http_get(url: str) -> dict:
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        check(resp.status == 200, f"GET {url} answered {resp.status}")
+        return json.loads(resp.read())
+
+
+def server_images(n: int, seed: int) -> list:
+    """``n`` seeded uint8 frames at the model's size."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (IMG_H, IMG_W, 3), dtype=np.uint8) for _ in range(n)]
+
+
+def smooth_jpegs(n: int, seed: int, sizes=None) -> list:
+    """``n`` seeded JPEG files' bytes (quality 90): coarse noise blown up
+    bilinearly, so they compress as photographs do; at the model's size or
+    at ``sizes`` (width, height)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        w, h = sizes[i] if sizes else (IMG_W, IMG_H)
+        small = rng.integers(0, 256, (max(h // 16, 2), max(w // 16, 2), 3), dtype=np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(small).resize((w, h), Image.BILINEAR).save(buf, format="JPEG", quality=90)
+        out.append(buf.getvalue())
+    return out
+
+
+def expected_detections(res, row: int, conf: float) -> list:
+    """What ``BatchingDetector._run`` answers for ``row`` of a step's
+    ``NmsResult`` for a frame at the model's size (2 and 4 decimals)."""
+    boxes, scores, valid = (t[row].cpu().numpy() for t in (res.boxes, res.scores, res.valid))
+    keep = valid & (scores >= conf)
+    xyxy = boxes[keep].astype(np.float64)
+    xyxy[:, 0::2] = xyxy[:, 0::2].clip(0, IMG_W)
+    xyxy[:, 1::2] = xyxy[:, 1::2].clip(0, IMG_H)
+    return [{"xyxy": [round(float(v), 2) for v in b], "score": round(float(s), 4)}
+            for b, s in zip(xyxy, scores[keep])]
+
+
+def recorded_step(det, images, ctx=None):
+    """``det``'s serving step on the zero-padded batch of ``images``,
+    recording the forward's (boxes, scores) that reach the tail."""
+    batch = np.zeros((SERVER_B, IMG_H, IMG_W, 3), np.uint8)
+    batch[: len(images)] = images
+    ids = np.zeros((SERVER_B,), np.int32)
+    if ctx is not None:
+        ids[: len(ctx)] = ctx
+    seen = []
+
+    def recording(real):
+        def tail(boxes, scores, *args, **kwargs):
+            seen.append((boxes.clone(), scores.clone()))
+            return real(boxes, scores, *args, **kwargs)
+        return tail
+
+    with patched(serving_module, "batched_nms", recording), \
+            patched(serving_module, "detr_topk_select", recording):
+        res = det._step(batch, ids)
+    check(len(seen) == 1, "one tail a step")
+    return res, seen[0]
+
+
+def check_tail_on_cpu(name: str, res, forward, detr: bool) -> None:
+    """The step's tail bitwise equal to the plain tail on the CPU on the
+    same forward outputs (as the ``evaluate`` phase holds it)."""
+    boxes, scores = (t.cpu() for t in forward)
+    if detr:
+        plain = detr_topk_select(boxes, scores, max_det=MAX_DET, score_threshold=SCORE_THR)
+    else:
+        zeros = torch.zeros(scores.shape, dtype=torch.int32)
+        plain = _batched_nms_plain(boxes, scores, zeros, iou_threshold=IOU,
+                                   score_threshold=SCORE_THR, max_det=MAX_DET,
+                                   num_candidates=POOL, class_agnostic=False)
+    check(bitwise_equal(tuple(t.cpu() for t in res), plain),
+          f"{name}: the raw step's tail == the plain tail on the CPU")
+
+
+def start_child(args: list) -> "tuple[subprocess.Popen, queue.Queue]":
+    """``python -m multimodal_moe_torch.cli.<args>`` from the checkout, its
+    output lines into a queue."""
+    proc = subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines: "queue.Queue[str]" = queue.Queue()
+
+    def read():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put("")   # end of output
+
+    threading.Thread(target=read, daemon=True).start()
+    return proc, lines
+
+
+def child_url(proc, lines, what: str) -> str:
+    """The URL of a serving child's ``[serve] listening on`` line."""
+    deadline = time.monotonic() + CLI_WAIT_S
+    seen = []
+    while time.monotonic() < deadline:
+        try:
+            line = lines.get(timeout=max(deadline - time.monotonic(), 0.1))
+        except queue.Empty:
+            break
+        seen.append(line)
+        if "listening on" in line:
+            return line.split("listening on ")[1].split()[0]
+        if line == "" and proc.poll() is not None:
+            break
+    raise RuntimeError(f"chip_smoke check failed: {what} did not listen: {''.join(seen)[-3000:]}")
+
+
+def stop_child(proc) -> None:
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def kernel_libraries() -> dict:
+    """The kernels' built libraries and their modification times."""
+    return {p.name: p.stat().st_mtime_ns for p in _build.BUILD_DIR.glob("*.so")
+            if not p.name.startswith("libmmoe_jpeg")}
+
+
+@contextlib.contextmanager
+def collector_clock(det):
+    """Host-clock marks of each ``_run`` of ``det``'s collector thread: its
+    start, its step's start and its end (the answers set)."""
+    marks, step_at = [], []
+    run, step = det._run, det._step
+
+    def timed_step(*args, **kwargs):
+        step_at.append(time.perf_counter())
+        return step(*args, **kwargs)
+
+    def timed_run(group):
+        t0 = time.perf_counter()
+        run(group)
+        marks.append((t0, step_at.pop() if step_at else t0, time.perf_counter()))
+
+    det._run, det._step = timed_run, timed_step
+    try:
+        yield marks
+    finally:
+        det._run, det._step = run, step
+
+
+def device_busy(prof, top: int = 6) -> dict:
+    """The kernels' and copies' time on the card in a profiler window (one
+    stream: their sum is the card's busy time), and the ``top`` of them."""
+    rows = device_rows(prof)
+    return {"busy_ms": sum(ms for _, ms, _ in rows),
+            "top": [{"op": k[:70], "ms": ms, "calls": n} for k, ms, n in rows[:top]]}
+
+
+def load_level(det, port: int, bodies: list, raw: bool, clients: int, seconds: float,
+               profile: bool = False) -> dict:
+    """Closed-loop load: ``clients`` keep-alive connections, each sending
+    its next request when the last is answered, for ``SERVER_RAMP_S`` (not
+    counted) and then a window of ``seconds``, after which the clients send
+    nothing more and wait for their answers. req/s counts the answers inside
+    the window; p50 and p99 are over the requests sent inside it (p99 only
+    from ``P99_MIN`` of them on); the batch fill and the collector's split
+    are over the device calls that start inside it. Any request that fails
+    fails the phase. The connections are opened one after another before
+    the clock starts (the server's listen backlog is the standard library's
+    5). With ``profile``, ``torch.profiler`` records the card over the
+    window: its busy share and the ops that fill it."""
+    done, errors = [], []
+    lock, stop = threading.Lock(), threading.Event()
+    conns = [http.client.HTTPConnection("127.0.0.1", port, timeout=CLI_WAIT_S)
+             for _ in range(clients)]
+    for conn in conns:
+        conn.connect()
+
+    def client(i):
+        conn, j = conns[i], i
+        try:
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                http_post(port, bodies[j % len(bodies)], raw=raw, conn=conn)
+                with lock:
+                    done.append((t0, time.perf_counter()))
+                j += clients
+        except Exception as e:   # counted, and the phase fails below
+            with lock:
+                errors.append(repr(e))
+        finally:
+            conn.close()
+
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA]) \
+        if profile else None
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+    with collector_clock(det) as marks:
+        try:
+            for t in threads:
+                t.start()
+            time.sleep(SERVER_RAMP_S)
+            if prof:
+                prof.start()
+            lo = time.perf_counter()
+            with det._lock:
+                before = dict(det.stats)
+            time.sleep(seconds)
+            hi = time.perf_counter()
+            with det._lock:
+                after = dict(det.stats)
+            if prof:
+                prof.stop()
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=CLI_WAIT_S)
+    check(not any(t.is_alive() for t in threads), f"load level {clients}: a client hung")
+    check(not errors, f"load level {clients}: {len(errors)} requests failed: {errors[:3]}")
+    calls = after["device_calls"] - before["device_calls"]
+    check(calls > 0, f"load level {clients}: no device call in {hi - lo:.2f} s")
+    ms = np.asarray([b - a for a, b in done if lo <= a < hi]) * 1e3
+    starts = [m[0] for m in marks]
+    inside = [(m, starts[i + 1] if i + 1 < len(marks) else None)
+              for i, m in enumerate(marks) if lo <= m[0] < hi]
+    rec = {"body": "raw" if raw else "jpeg", "clients": clients, "seconds": hi - lo,
+           "sent": len(done) + len(errors), "answered": len(done), "failed": len(errors),
+           "latencies": len(ms), "req_per_s": sum(lo <= b < hi for _, b in done) / (hi - lo),
+           "p50_ms": float(np.percentile(ms, 50)),
+           "p99_ms": float(np.percentile(ms, 99)) if len(ms) >= P99_MIN else None,
+           "device_calls": calls,
+           "batch_fill": (after["batched_images"] - before["batched_images"]) / calls,
+           "last_step_ms": after["last_step_ms"],
+           # the collector's time a device call: the padded batch's assembly,
+           # the step to the answers set, then its wait for the next group
+           "assemble_ms": float(np.mean([b - a for (a, b, _), _ in inside]) * 1e3),
+           "step_to_answers_ms": float(np.mean([c - b for (_, b, c), _ in inside]) * 1e3),
+           "between_calls_ms": float(np.mean([n - c for (_, _, c), n in inside
+                                              if n is not None]) * 1e3)}
+    if prof:
+        busy = device_busy(prof)
+        rec["device_busy_share"] = busy["busy_ms"] / (rec["seconds"] * 1e3)
+        rec["device_top"] = busy["top"]
+    return rec
+
+
+def server_family(name: str, run: Path, dev, jpegs: list) -> "tuple[dict, object]":
+    """One run dir loaded onto the card behind ``BatchingDetector`` and
+    HTTP: the main path (every request through the server, launch counts
+    from zero), then the raw step's checks. Returns the record and the
+    ``LoadedDetector``."""
+    loaded = loading.load_detector(run, img_h=IMG_H, img_w=IMG_W, device=dev)
+    check(model_device(loaded.model).type == dev.type, f"{name}: on {dev.type}")
+    if loaded.family == "moe":   # an init's context bias is 0: the bins would change nothing
+        gen = torch.Generator().manual_seed(65)
+        with torch.no_grad():
+            for pname, p in loaded.model.named_parameters():
+                if pname.endswith("context_bias"):
+                    p.copy_(torch.randn(p.shape, generator=gen))
+    det = BatchingDetector(loaded.model, loaded.variables, batch=SERVER_B, img_h=IMG_H,
+                           img_w=IMG_W, pool=POOL, max_wait_ms=SERVER_WAIT_MS)
+    rec = {"family": loaded.family}
+    detr, moe = loaded.family == "rtdetr", loaded.family == "moe"
+    images = server_images(SERVER_B, seed=60 + len(name))
+    try:
+        t0 = time.perf_counter()
+        det.warmup()
+        rec["warmup_s"] = time.perf_counter() - t0
+        with http_server(det) as port:
+            # the main path: counts from zero, every call through the server
+            nms_kernel.nms_keep_launches = 0
+            deformable_kernel.ms_deform_fwd_launches = 0
+            with det._lock:
+                calls0 = det.stats["device_calls"]
+            single = http_post(port, images[0].tobytes(), "conf=0")["detections"]
+            with det._lock:
+                solo_calls = det.stats["device_calls"] - calls0
+            # 16 requests queued while the step of a 17th runs (a submit's
+            # copy of a frame costs ~2 ms of page faults on these hosts, so
+            # 16 in a row from one thread outlast the 20 ms window)
+            primer = det.submit(images[-1], conf=0.0)
+            time.sleep(2.5 * det.max_wait_s)
+            t_submit = time.perf_counter()
+            futs = [det.submit(img, conf=0.0) for img in images]
+            rec["submit_ms"] = (time.perf_counter() - t_submit) * 1e3
+            primer.result(timeout=CLI_WAIT_S)
+            together = [f.result(timeout=CLI_WAIT_S) for f in futs]
+            with det._lock:
+                coalesced = det.stats["device_calls"] - calls0 - solo_calls - 1
+            ctx_answer = http_post(port, images[1].tobytes(), "context=3&conf=0")["detections"] \
+                if moe else None
+            jpeg = http_post(port, jpegs[0], "conf=0", raw=False)
+            if name == "yolo":
+                bodies = {True: [i.tobytes() for i in images], False: jpegs}
+                rec["load"] = [load_level(det, port, bodies[raw], raw, clients, seconds)
+                               for raw, clients, seconds in SERVER_LEVELS]
+                rec["load_profiled"] = load_level(det, port, bodies[True], True, 64,
+                                                  SERVER_PROFILE_S, profile=True)
+                # the handler's Nagle algorithm off (it is on in both
+                # servers): what it costs one client a request
+                with patched(server_module._Handler, "disable_nagle_algorithm",
+                             lambda real: True):
+                    rec["load_nodelay"] = load_level(det, port, bodies[True], True, 1,
+                                                     SERVER_LEVELS[0][2])
+            with det._lock:
+                stats = dict(det.stats)
+            launches = {"nms_keep": nms_kernel.nms_keep_launches,
+                        "ms_deform_fwd": deformable_kernel.ms_deform_fwd_launches}
+            device_calls = stats["device_calls"] - calls0
+            health = http_get(f"http://127.0.0.1:{port}/healthz")
+        rec.update(launches=launches, device_calls=device_calls, errors=stats["errors"],
+                   last_step_ms=stats["last_step_ms"], coalesced_device_calls=coalesced,
+                   healthz_keys=sorted(health))
+        check(stats["errors"] == 0, f"{name}: the server counted errors")
+        want = {"nms_keep": 0 if detr else device_calls,
+                "ms_deform_fwd": RT_LAYERS * device_calls if detr else 0}
+        check(launches == want, f"{name}: launches {launches}, expected {want}")
+        check(solo_calls == 1 and coalesced == 1, f"{name}: {SERVER_B} requests in "
+              f"{coalesced} device calls (one request: {solo_calls}; submitted in "
+              f"{rec['submit_ms']:.1f} ms)")
+        check(health["ok"] and health["batch"] == SERVER_B, f"{name}: healthz {health}")
+
+        # the raw step on the same padded batches
+        res, forward = recorded_step(det, images[:1])
+        check_tail_on_cpu(name, res, forward, detr)
+        expect = expected_detections(res, 0, 0.0)
+        check(single == expect and len(single) > 0,
+              f"{name}: one request == the raw step ({len(single)} vs {len(expect)})")
+        rec["detections_per_request"] = len(single)
+        if not detr:
+            rec["independent_of_neighbours"] = together[0] == single
+            check(rec["independent_of_neighbours"],
+                  f"{name}: a response depends on its batch neighbours")
+        full, forward = recorded_step(det, images)
+        check_tail_on_cpu(name, full, forward, detr)
+        check(together == [expected_detections(full, i, 0.0) for i in range(SERVER_B)],
+              f"{name}: {SERVER_B} coalesced requests == the raw step")
+        if moe:
+            res3, _ = recorded_step(det, images[1:2], ctx=[3])
+            res0, _ = recorded_step(det, images[1:2])
+            check(ctx_answer == expected_detections(res3, 0, 0.0),
+                  f"{name}: ?context=3 == the raw step with context 3")
+            rec["context_changes_answer"] = ctx_answer != expected_detections(res0, 0, 0.0)
+            check(rec["context_changes_answer"], f"{name}: the context bins change nothing")
+        # the JPEG round trip: decoded as the handler decodes it
+        if data_native.native_available():
+            arr = data_native.decode_jpeg_bytes(jpegs[0], IMG_H, IMG_W)
+        else:
+            from PIL import Image
+
+            with Image.open(io.BytesIO(jpegs[0])) as im:
+                arr = np.asarray(im.convert("RGB"), np.uint8)
+        res_j, _ = recorded_step(det, [arr])
+        check(jpeg["detections"] == expected_detections(res_j, 0, 0.0)
+              and (jpeg["width"], jpeg["height"]) == (IMG_W, IMG_H),
+              f"{name}: the JPEG round trip == the raw step on the decoded frame")
+        if name == "yolo":
+            dev_images = torch.as_tensor(np.stack(images), device=dev)
+            rec["bare_step_ms"] = cuda_ms(lambda: det._step(dev_images), reps=5)
+    finally:
+        det.close()
+    return rec, loaded
+
+
+def phase_server(dev, smi: str) -> dict:
+    """The serving deployment at 704x1248: YOLO-s, MoE-YOLO-s (E=4) and
+    RT-DETR r50vd run dirs (random weights from seed 0) loaded onto the card
+    behind ``BatchingDetector`` (batch 16, pool 512, 20 ms window) and
+    ``DetectorHTTPServer``; then the serve and predict CLIs and an int8
+    serve CLI as child processes, started together."""
+    t0 = time.perf_counter()
+    rec = {"phase": "server", "gpu": smi, "img_hw": [IMG_H, IMG_W], "batch": SERVER_B,
+           "pool": POOL, "max_wait_ms": SERVER_WAIT_MS, "native_jpeg": data_native.native_available(),
+           "families": {}, **tf32_state()}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        runs = {cfg["family"]: write_run_dir(root / "runs", cfg) for cfg in EVAL_FAMILIES}
+        sizes = [(int(w), int(h)) for w, h in np.random.default_rng(61).integers(
+            (160, 90), (2 * IMG_W, 2 * IMG_H), (SERVER_IMAGES, 2))]
+        (root / "imgs").mkdir()
+        for i, data in enumerate(smooth_jpegs(SERVER_IMAGES, seed=62, sizes=sizes)):
+            (root / "imgs" / f"frame_{i:02d}.jpg").write_bytes(data)
+        libraries = kernel_libraries()
+        check(all(_build.library_path(k).name in libraries for k in KERNELS),
+              "the build phase's libraries are there for the children")
+        size = ["--img-h", str(IMG_H), "--img-w", str(IMG_W), "--batch", str(SERVER_B)]
+        serve = ["multimodal_moe_torch.cli.serve_detector", "--weights", str(runs["yolo"]),
+                 "--port", "0", *size]
+        jpegs = smooth_jpegs(SERVER_B, seed=63)
+        for name in ("yolo", "moe", "rtdetr"):
+            rec["families"][name], loaded = server_family(name, runs[name], dev, jpegs)
+            if name == "yolo":
+                yolo = loaded
+            del loaded
+            torch.cuda.empty_cache()
+        # the children after the timed load: their start-up would share the host
+        t_children = time.perf_counter()
+        children = {
+            "serve": start_child(serve),
+            "serve_int8": start_child([*serve, "--int8", "--calib-images", str(root / "imgs")]),
+            "predict": start_child(["multimodal_moe_torch.cli.predict_detector",
+                                    "--weights", str(runs["yolo"]), "--images",
+                                    str(root / "imgs"), "--out", str(root / "preds"),
+                                    "--conf", "0", *size]),
+        }
+        try:
+            rec["children"] = server_children(children, yolo)
+            preds = json.loads((root / "preds" / "predictions.json").read_text())
+            check([p["image"] for p in preds] == sorted(p.name for p in (root / "imgs").iterdir()),
+                  "predict CLI: one entry an image")
+            for p, (w, h) in zip(preds, sizes):
+                check((p["width"], p["height"]) == (w, h) and len(p["detections"]) > 0
+                      and all(0 <= d["xyxy"][0] <= d["xyxy"][2] <= w
+                              and 0 <= d["xyxy"][1] <= d["xyxy"][3] <= h
+                              for d in p["detections"]),
+                      f"predict CLI: {p['image']}'s boxes inside its {w}x{h} image")
+            rec["children"]["predict"]["images"] = len(preds)
+            rec["children"]["predict"]["detections"] = sum(len(p["detections"]) for p in preds)
+            rec["children"]["seconds"] = time.perf_counter() - t_children
+        finally:
+            for proc, _ in children.values():
+                stop_child(proc)
+        check(kernel_libraries() == libraries, "the children built no kernel")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def server_children(children: dict, loaded) -> dict:
+    """The serve CLI's ``/healthz`` and one raw ``/predict``, equal to the
+    in-process answer under torch's default TF32 state (the CLIs keep it);
+    the int8 serve CLI's; the predict CLI's exit."""
+    out = {}
+    img = server_images(1, seed=64)[0]
+    for name in ("serve", "serve_int8"):
+        proc, lines = children[name]
+        url = child_url(proc, lines, name)
+        health = http_get(f"{url}/healthz")
+        check(health["ok"] and health["batch"] == SERVER_B, f"{name}: healthz {health}")
+        answer = http_post(int(url.rsplit(":", 1)[1]), img.tobytes(), "conf=0")["detections"]
+        check(len(answer) > 0, f"{name}: no detections")
+        out[name] = {"healthz": health, "detections": len(answer), "answer": answer}
+    cudnn, matmul = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = TORCH_DEFAULT_TF32["cudnn"]
+    torch.backends.cuda.matmul.allow_tf32 = TORCH_DEFAULT_TF32["matmul"]
+    det = BatchingDetector(loaded.model, loaded.variables, batch=SERVER_B, img_h=IMG_H,
+                           img_w=IMG_W, pool=POOL, max_wait_ms=SERVER_WAIT_MS)
+    try:
+        local = det.submit(img, conf=0.0).result(timeout=CLI_WAIT_S)
+    finally:
+        det.close()
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = cudnn, matmul
+    served = out["serve"].pop("answer")
+    out["serve_int8"].pop("answer")
+    out["serve"]["equal_to_in_process"] = served == local
+    check(served == local, "serve CLI: /predict == the in-process answer (torch's TF32 defaults)")
+    proc, lines = children["predict"]
+    proc.wait(timeout=CLI_WAIT_S)
+    log = []
+    while not lines.empty():
+        log.append(lines.get())
+    check(proc.returncode == 0, f"predict CLI exited {proc.returncode}: {''.join(log)[-2000:]}")
+    out["predict"] = {"log_tail": "".join(log)[-300:]}
+    return out
+
+
 def nms_launch_split(fn, reps: int = 20) -> dict:
     """Device ms of each of the keep mask's two launches (the IoU bitmask,
     the walk; above K = 1024 ``mask_tiles_kernel`` and
@@ -983,13 +1552,10 @@ def nms_launch_split(fn, reps: int = 20) -> dict:
     split = {"mask_kernel": 0.0, "walk_kernel": 0.0}
     pattern = {"mask_kernel": re.compile(r"mask_(tiles_)?kernel"),
                "walk_kernel": re.compile(r"walk_(global_)?kernel")}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
+    for key, ms, _ in device_rows(prof):
         for name in split:
-            if pattern[name].search(e.key):
-                split[name] += us / 1e3 / reps
+            if pattern[name].search(key):
+                split[name] += ms / reps
     check(all(ms > 0 for ms in split.values()), "the profiler saw both NMS launches")
     return split
 
@@ -2504,13 +3070,10 @@ def tgmm_passes(lhs, g, sizes) -> dict:
             gmm_kernel.tgmm(lhs, g, sizes)
         torch.cuda.synchronize()
     passes = {"partial_ms": 0.0, "reduce_ms": 0.0}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
+    for name, ms, _ in device_rows(prof):
         for key in ("partial", "reduce"):
-            if f"tgmm_{key}_kernel" in ev.key:
-                passes[f"{key}_ms"] += us / 1e3 / 3
+            if f"tgmm_{key}_kernel" in name:
+                passes[f"{key}_ms"] += ms / 3
     return passes
 
 
@@ -2846,15 +3409,7 @@ def profile_step(trainer, state, batch, top: int = 12) -> dict:
     with torch.profiler.profile(activities=acts) as prof:
         trainer.train_step(state, batch)
         torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        rows.append((e.key, us / 1e3, e.count))
-    rows.sort(key=lambda r: -r[1])
+    rows = device_rows(prof)
     return {"kernel_ms_total": sum(ms for _, ms, _ in rows),
             "top_kernels": [{"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in rows[:top]]}
 
@@ -3770,6 +4325,10 @@ def main() -> int:
     emit(evaluation)
     launches_on_eval = {family: m["launches"] for family, m in evaluation["models"].items()}
     nms_entry["evaluate_launches"] = {f: c["nms_keep"] for f, c in launches_on_eval.items()}
+    server = phase_server(dev, smi)
+    emit(server)
+    launches_on_server = {f: m["launches"] for f, m in server["families"].items()}
+    nms_entry["server_launches"] = {f: launches_on_server[f]["nms_keep"] for f in ("yolo", "moe")}
 
     cases = phase_deform_kernel(dev)
     _, fp32_err = phase_rtdetr_fp32(dev)
@@ -3793,6 +4352,7 @@ def main() -> int:
         "training_plain_ms": fwd_train["plain_ms"], "training_bound_ms": fwd_train["bound_ms"],
         "training_library_ms": fwd_train["library_ms"],
         "evaluate_launches": launches_on_eval["rtdetr"]["ms_deform_fwd"],
+        "server_launches": launches_on_server["rtdetr"]["ms_deform_fwd"],
     }
     bwd_entry = {
         "name": "ms_deform_bwd", "route": "cuda",

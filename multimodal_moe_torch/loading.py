@@ -5,8 +5,9 @@ directories: ``model_config.json`` plus the ``torch.save`` checkpoints of
 ``train/state.py:CheckpointManager`` (``weights/best``, ``weights/last``).
 This module is the one place that maps them back to a constructed detector
 and its restored weights, fp or, through :func:`quantize_loaded`, int8 PTQ
-for serving (YOLO, MoE-YOLO and RT-DETR). Orbax run dirs of the JAX package
-are not read (ROADMAP A5).
+for serving (YOLO, MoE-YOLO and RT-DETR). A run dir of the JAX package
+(Orbax checkpoints) is read after ``tools/orbax_to_torch.py`` has converted
+it to this layout.
 """
 
 from __future__ import annotations

@@ -261,8 +261,15 @@ class CheckpointManager:
         return torch.load(self._path(name) / self.FILE, map_location="cpu", weights_only=True)
 
     def restore(self, name: str, target: TrainState) -> TrainState:
-        """The whole state, optimizer included, into ``target``."""
+        """The whole state, optimizer included, into ``target``. A checkpoint
+        without optimizer state (one converted from a JAX run dir by
+        ``tools/orbax_to_torch.py``) raises ``ValueError``: it serves and
+        evaluates through :meth:`restore_eval`, but cannot resume training."""
         raw = self._load(name)
+        if "opt_state" not in raw:
+            raise ValueError(
+                f"{self._path(name)} holds no optimizer state (a checkpoint converted by "
+                "tools/orbax_to_torch.py); it cannot resume training, restore_eval reads it")
         target.model.load_state_dict(raw["model"], strict=True)
         target.opt.load_state_dict(raw["opt_state"])
         _copy_into(target.ema_params, raw["ema_params"])

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no module of ``multimodal_moe_torch`` (nor
 ``chip_smoke.py``) imports ``jax``, ``flax``, ``optax``, ``orbax`` or
-``multimodal_moe_tpu``; the training, evaluation and data modules are among
-those imported. The data modules import pandas, pyarrow and PIL only inside
-the functions that use them, so importing the port needs none of them."""
+``multimodal_moe_tpu``; the training, evaluation, data and serving modules
+and the CLIs are among those imported. The data modules import pandas,
+pyarrow and PIL only inside the functions that use them, so importing the
+port needs none of them."""
 
 import ast
 import subprocess
@@ -12,7 +13,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "multimodal_moe_tpu")
 # Modules that must be among those the child imports (the training, the
-# evaluation and the data modules).
+# evaluation, the data and the serving modules, the CLIs).
 REQUIRED = ("multimodal_moe_torch.losses.hungarian", "multimodal_moe_torch.ops.assignment",
             "multimodal_moe_torch.ops.augment", "multimodal_moe_torch.train.state",
             "multimodal_moe_torch.train.detection", "multimodal_moe_torch.train.evaluator",
@@ -22,7 +23,8 @@ REQUIRED = ("multimodal_moe_torch.losses.hungarian", "multimodal_moe_torch.ops.a
             "multimodal_moe_torch.ops.int8_conv", "multimodal_moe_torch.data.solar",
             "multimodal_moe_torch.data.index", "multimodal_moe_torch.data.exports",
             "multimodal_moe_torch.data.native_decode", "multimodal_moe_torch.data.pipeline",
-            "multimodal_moe_torch.data.resident")
+            "multimodal_moe_torch.data.resident", "multimodal_moe_torch.server",
+            "multimodal_moe_torch.cli.serve_detector", "multimodal_moe_torch.cli.predict_detector")
 
 _CHILD = """
 import importlib, pkgutil, sys
