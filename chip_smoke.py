@@ -276,6 +276,30 @@ Phases (each prints one JSON line):
                on numpy planes and targets at the same sizes (the rgb loader
                and the val split still from the corpus where PIL, pandas and
                pyarrow are there).
+20. multigpu -- DetectionTrainer on a mesh of two ranks sharing the card over
+               gloo (NCCL refuses two ranks on one device; gloo stages each
+               CUDA collective through the host, so the times are not a
+               multi-GPU speed), started by ``parallel.distributed.run_ranks``
+               as ``chip_smoke.py --multigpu-rank DIR``: MoE-YOLO-s (E=4) at
+               704x1248, global B=16 (8 a rank), one step from seed-0 weights
+               on 1 data x 2 expert on ``sweep`` and on ``gmm``, on 2 x 1 on
+               ``auto``, and YOLO-s on 2 x 1, fp32 with TF32 off, each against
+               the one-process step on the same global batch, weights and
+               draws: the loss within 1e-5 relative, the metrics equal on
+               both ranks, every parameter within 1e-3 of its update plus an
+               ulp, every momentum trace (the gradient, the first step's lr
+               being 0) within 1e-3 of its norm, every running mean within
+               1e-6 of sqrt(var) and running variance within 1e-6 relative
+               (tests/test_torch_distributed.py's rules), each MoE level's
+               top-2 sets identical outside the near ties (2nd and 3rd
+               probabilities within twice the largest probability
+               difference: the two steps sum in different orders, so such a
+               token may fall either way), which stay under 1% of the
+               level's tokens; B3 6 + 6 + 6 launches a rank on ``gmm`` (``multigpu_launches`` in the
+               ``kernels`` line), none on the others; each rank's first and
+               second step ms and peak memory beside the one-process step's;
+               then ``dryrun_multichip(2)`` through NCCL, which runs one rank
+               (one card) and prints JAX's line.
 
 """
 
@@ -3193,7 +3217,7 @@ def gmm_kernel_entries(report: dict, launches: dict) -> list:
 
 
 def yolo_trainer(dev, b: int, moe: bool = True, dispatch: str = "gmm", template=None,
-                 **cfg_kw) -> DetectionTrainer:
+                 mesh=None, **cfg_kw) -> DetectionTrainer:
     """scripts/train_moe.py's model and trainer (MoE-YOLO-s, E=4, k=2, cf
     1.25, ``moe_yolo_loss``) or scripts/train_yolo.py's (YOLO-s, the
     trainer's default ``yolo_loss``), float32, with DetTrainConfig's
@@ -3206,7 +3230,8 @@ def yolo_trainer(dev, b: int, moe: bool = True, dispatch: str = "gmm", template=
                     if moe else YoloDetector(num_classes=1, variant="s", generator=gen))
     cfg = DetTrainConfig(**{**dict(variant="s", img_h=IMG_H, img_w=IMG_W, batch=b), **cfg_kw})
     kw = {"loss_fn": moe_yolo_loss} if moe else {}
-    return DetectionTrainer(template, cfg, steps_per_epoch=RT_STEPS_PER_EPOCH, device=dev, **kw)
+    return DetectionTrainer(template, cfg, steps_per_epoch=RT_STEPS_PER_EPOCH, device=dev,
+                            mesh=mesh, **kw)
 
 
 def yolo_train_batch(b: int, seed: int, dev) -> dict:
@@ -4303,7 +4328,250 @@ def phase_data(dev, smi: str, prestaged: dict) -> dict:
     return rec
 
 
+# --------------------------------------------------------------------------
+# multigpu: the trainer on a mesh of two gloo ranks sharing the card
+# --------------------------------------------------------------------------
+
+MULTIGPU_B = 16            # the global batch (8 a rank)
+MULTIGPU_SEED = 21
+# (name, MoE-YOLO-s or YOLO-s, dispatch, num_data, num_expert)
+MULTIGPU_CASES = (("moe_sweep_1x2", True, "sweep", 1, 2), ("moe_gmm_1x2", True, "gmm", 1, 2),
+                  ("moe_auto_2x1", True, "auto", 2, 1), ("yolo_2x1", False, "gmm", 2, 1))
+MULTIGPU_RANKS = 2
+# The CPU tests' tolerances (tests/test_torch_distributed.py).
+MG_LOSS_RTOL, MG_PARAM_TOL, MG_TRACE_RTOL, MG_BN_TOL = 1e-5, 1e-3, 1e-3, 1e-6
+# Routing: identical outside the near ties, which stay under 1% of a level's
+# tokens (the near-tie rule of the fused MoE-YOLO phase's card-CPU check).
+MG_NEAR_TIE_SHARE = 0.01
+
+
+def multigpu_batch(dev) -> dict:
+    return yolo_train_batch(MULTIGPU_B, seed=MULTIGPU_SEED, dev=dev)
+
+
+def multigpu_step(trainer, state, batch) -> dict:
+    """One step from ``state``: the metrics, the B3 launches (the forward's
+    read when the loss starts), each MoE level's router logits, the step's
+    time on the card (CUDA events) and the state after it."""
+    real_loss, seen = trainer.loss_fn, {}
+
+    def loss_fn(*a, **k):
+        seen["gmm_forward"] = gmm_kernel.gmm_launches
+        return real_loss(*a, **k)
+
+    logits, handles = router_logits(state.model) if hasattr(state.model, "moe_level0") \
+        else ([], [])
+    trainer.loss_fn = loss_fn
+    gmm_kernel.gmm_launches = gmm_kernel.tgmm_launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    state, metrics = trainer.train_step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    trainer.loss_fn = real_loss
+    for h in handles:
+        h.remove()
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "logits": [x.detach() for x in logits],
+            "launches": {"gmm_forward": seen.get("gmm_forward", 0),
+                         "gmm_transposed": gmm_kernel.gmm_launches - seen.get("gmm_forward", 0),
+                         "tgmm": gmm_kernel.tgmm_launches},
+            "step_ms": start.elapsed_time(end), "state": state}
+
+
+def to_cpu(obj):
+    """Every tensor of a nested dict on the host."""
+    if isinstance(obj, dict):
+        return {k: to_cpu(v) for k, v in obj.items()}
+    return obj.cpu() if torch.is_tensor(obj) else obj
+
+
+def multigpu_rank(work: Path) -> int:
+    """One rank of the ``multigpu`` phase (``chip_smoke.py --multigpu-rank
+    DIR``, started by ``run_ranks``): every case's first step on its mesh,
+    then a second step for its time; rank 0 writes the records."""
+    from multimodal_moe_torch.parallel.distributed import (
+        loader_shard, maybe_initialize_distributed, rank_device)
+    from multimodal_moe_torch.parallel.mesh import batch_slice, create_mesh
+    from multimodal_moe_torch.train.state import one_process_state_dict
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    maybe_initialize_distributed(backend="gloo")
+    rank, world = loader_shard()
+    dev = rank_device()
+    meshes = {(nd, ne): create_mesh(nd, ne) for _, _, _, nd, ne in MULTIGPU_CASES}
+    batch = multigpu_batch(dev)
+    records = {}
+    for name, moe, dispatch, nd, ne in MULTIGPU_CASES:
+        mesh = meshes[(nd, ne)]
+        trainer = yolo_trainer(dev, MULTIGPU_B, moe=moe, dispatch=dispatch, mesh=mesh)
+        state = trainer.init_state()
+        rows = batch_slice(mesh, MULTIGPU_B)
+        local = {k: v[rows] for k, v in batch.items()}
+        r = multigpu_step(trainer, state, local)
+        state = r.pop("state")
+        rec = {"metrics": r["metrics"], "launches": r["launches"], "first_step_ms": r["step_ms"],
+               "state": to_cpu(one_process_state_dict(state, mesh)),
+               "logits": [mesh.gather(x.contiguous()).cpu() for x in r["logits"]]}
+        rec["step_ms"] = multigpu_step(trainer, state, local)["step_ms"]
+        rec["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        if rank != 0:
+            rec = {k: rec[k] for k in ("metrics", "launches", "first_step_ms", "step_ms",
+                                       "peak_mem_gib")}
+        records[name] = rec
+        del trainer, state, r
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    torch.save(records, work / f"rank{rank}.pt")
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def step_errors(got: dict, ref: dict) -> dict:
+    """The multi-rank state after a step against the one-process one, each
+    as a ratio to its tolerance (the CPU tests' rules): parameters against
+    1e-3 of their update plus an ulp an element, momentum traces 1e-3 of
+    their norm, running means 1e-6 of √var, running variances 1e-6 of var."""
+    out = {"param": 0.0, "trace": 0.0, "bn_mean": 0.0, "bn_var": 0.0}
+    for k, want in ref["model"].items():
+        have = got["model"][k].double()
+        want = want.double()
+        if k.endswith("num_batches_tracked"):
+            continue
+        if k.endswith("running_mean"):
+            var = ref["model"][k.replace("running_mean", "running_var")].double()
+            out["bn_mean"] = max(out["bn_mean"], float(((have - want).abs() / var.sqrt()).max()))
+        elif k.endswith("running_var"):
+            out["bn_var"] = max(out["bn_var"], float(((have - want).abs() / want).max()))
+        else:
+            tol = MG_PARAM_TOL * float((want - ref["before"][k].double()).norm()) \
+                + float(torch.finfo(torch.float32).eps * want.norm())
+            out["param"] = max(out["param"], float((have - want).norm()) / max(tol, 1e-30))
+    for k, want in ref["opt_state"]["trace"].items():
+        d = (got["opt_state"]["trace"][k].double() - want.double()).norm()
+        out["trace"] = max(out["trace"], float(d / want.double().norm().clamp_min(1e-30)))
+    return out
+
+
+def routing_compare(got: list, ref: list) -> list:
+    """Each MoE level's top-2 expert sets, multi-rank against one process:
+    the tokens whose sets differ, and the near ties, the tokens whose 2nd
+    and 3rd probabilities are within twice the largest probability
+    difference. The two steps sum in different orders (a rank's convolutions
+    see 8 images, not 16; BatchNorm adds two partial sums), so a near tie
+    may fall either way; a set may differ only there."""
+    out = []
+    for g, r in zip(got, ref):
+        pg, pr = torch.softmax(g.double(), -1), torch.softmax(r.double(), -1)
+        pick = lambda p: torch.sort(torch.topk(p, MOE_K).indices, -1).values  # noqa: E731
+        differ = (pick(pg) != pick(pr)).any(-1)
+        ordered = torch.sort(pr, -1, descending=True).values
+        near = (ordered[:, MOE_K - 1] - ordered[:, MOE_K]) <= 2 * float((pg - pr).abs().max())
+        out.append({"tokens": int(g.shape[0]), "differ": int(differ.sum()),
+                    "near_ties": int(near.sum()), "differ_outside_near_ties":
+                    int((differ & ~near).sum()), "max_logit_diff": float((g - r).abs().max())})
+    return out
+
+
+def phase_multigpu(dev, smi: str) -> dict:
+    """The trainer on a mesh: two gloo ranks on the one card (NCCL refuses
+    two ranks on one device), MoE-YOLO-s (E=4) at 704x1248, global B=16,
+    on 1 data x 2 expert (``sweep``, ``gmm``) and 2 x 1 (``auto``), and
+    YOLO-s on 2 x 1, fp32 with TF32 off: each first step against the
+    one-process step on the same global batch, weights and draws; B3's
+    launches a rank on ``gmm``; then ``dryrun_multichip(2)`` through NCCL
+    (one rank: the card is one)."""
+    from multimodal_moe_torch.entry import dryrun_multichip
+    from multimodal_moe_torch.parallel.distributed import run_ranks
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = multigpu_batch(dev)
+    refs = {}
+    for name, moe, dispatch, _, _ in MULTIGPU_CASES:
+        trainer = yolo_trainer(dev, MULTIGPU_B, moe=moe, dispatch=dispatch)
+        state = trainer.init_state()
+        before = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+        torch.cuda.reset_peak_memory_stats(dev)
+        r = multigpu_step(trainer, state, batch)
+        state = r.pop("state")
+        sd = state.state_dict()
+        refs[name] = {"metrics": r["metrics"], "launches": r["launches"],
+                      "logits": [x.cpu() for x in r["logits"]], "before": before,
+                      "model": to_cpu(sd["model"]), "opt_state": to_cpu(sd["opt_state"]),
+                      "step_ms": multigpu_step(trainer, state, batch)["step_ms"],
+                      "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+        del trainer, state, r, sd
+        torch.cuda.empty_cache()
+    del batch
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        run_ranks([sys.executable, str(ROOT / "chip_smoke.py"), "--multigpu-rank", str(work)],
+                  MULTIGPU_RANKS, timeout=600, cwd=str(ROOT))
+        ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
+                 for r in range(MULTIGPU_RANKS)]
+    ranks_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(2)
+    dry_s = time.perf_counter() - t0
+
+    rec = {"phase": "multigpu", "gpu": smi, "ranks": MULTIGPU_RANKS, "backend": "gloo",
+           "note": "two ranks sharing one card over gloo (collectives staged through the "
+                   "host by gloo): not a multi-GPU speed",
+           "batch": MULTIGPU_B, "img_hw": [IMG_H, IMG_W], "ranks_s": ranks_s, "cases": {},
+           "dryrun_multichip": {**dry, "seconds": dry_s}, **tf32_state()}
+    for name, moe, dispatch, nd, ne in MULTIGPU_CASES:
+        ref, got = refs[name], ranks[0][name]
+        loss, ref_loss = got["metrics"]["loss"], ref["metrics"]["loss"]
+        loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+        rec["cases"][name] = {
+            "model": "moe-yolo-s E=4" if moe else "yolo-s", "dispatch": dispatch if moe else None,
+            "mesh": {"data": nd, "expert": ne}, "loss": got["metrics"]["loss"],
+            "one_process_loss": ref["metrics"]["loss"], "loss_rel_err": loss_rel,
+            "metrics_equal_on_ranks": all(r[name]["metrics"] == got["metrics"] for r in ranks),
+            "errors_over_tolerance": step_errors(got["state"], ref),
+            "routing": routing_compare(got["logits"], ref["logits"]) if moe else None,
+            "launches_per_rank": [r[name]["launches"] for r in ranks],
+            "one_process_launches": ref["launches"],
+            "first_step_ms_per_rank": [r[name]["first_step_ms"] for r in ranks],
+            "step_ms_per_rank": [r[name]["step_ms"] for r in ranks],
+            "one_process_step_ms": ref["step_ms"],
+            "peak_mem_gib_per_rank": [r[name]["peak_mem_gib"] for r in ranks],
+            "one_process_peak_mem_gib": ref["peak_mem_gib"],
+        }
+    emit(rec)
+    for name, c in rec["cases"].items():
+        check(np.isfinite(c["loss"]) and c["loss_rel_err"] <= MG_LOSS_RTOL,
+              f"multigpu {name}: loss {c['loss']} against one process {c['one_process_loss']}")
+        check(c["metrics_equal_on_ranks"], f"multigpu {name}: every rank holds the global metrics")
+        e = c["errors_over_tolerance"]
+        check(e["param"] <= 1.0 and e["trace"] <= MG_TRACE_RTOL and e["bn_mean"] <= MG_BN_TOL
+              and e["bn_var"] <= MG_BN_TOL, f"multigpu {name}: state after the step {e}")
+        if c["routing"] is not None:
+            check(all(lv["differ_outside_near_ties"] == 0
+                      and lv["near_ties"] <= MG_NEAR_TIE_SHARE * lv["tokens"]
+                      for lv in c["routing"]),
+                  f"multigpu {name}: routing {c['routing']}")
+        gmm = c["dispatch"] == "gmm"
+        want = {"gmm_forward": 6, "gmm_transposed": 6, "tgmm": 6} if gmm else \
+            {"gmm_forward": 0, "gmm_transposed": 0, "tgmm": 0}
+        check(all(lr == want for lr in c["launches_per_rank"]),
+              f"multigpu {name}: B3 launches a rank {c['launches_per_rank']}, expected {want}")
+    check(dry["ranks"] == min(2, torch.cuda.device_count()) and dry["backend"] == "nccl"
+          and np.isfinite(dry["loss"]), f"dryrun_multichip(2): {dry}")
+    return rec
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--multigpu-rank":
+        return multigpu_rank(Path(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 1
@@ -4390,6 +4658,7 @@ def main() -> int:
     moe_train = phase_moe_yolo_train(dev, smi)
     phase_yolo_train(dev, smi)
     data = phase_data(dev, smi, moe_train["dispatch"]["gmm"])
+    multigpu = phase_multigpu(dev, smi)
     counts = moe_train["dispatch"]["gmm"]["launches_per_step"]
     gmm_entries = gmm_kernel_entries(gmm_cases, {
         "gmm": counts["gmm_forward"], "gmm_transposed": counts["gmm"] - counts["gmm_forward"],
@@ -4402,6 +4671,9 @@ def main() -> int:
         keys = {"gmm": ("gmm_forward", "val_gmm_forward"), "gmm_transposed": ("gmm_transposed",),
                 "tgmm": ("tgmm", "val_tgmm")}[entry["name"]]
         entry["data_launches"] = {name: sum(c[k] for k in keys) for name, c in fits.items()}
+        key = {"gmm": "gmm_forward", "gmm_transposed": "gmm_transposed", "tgmm": "tgmm"}
+        entry["multigpu_launches"] = [r[key[entry["name"]]] for r in
+                                      multigpu["cases"]["moe_gmm_1x2"]["launches_per_rank"]]
     emit({"kernels": [nms_entry, deform_entry, bwd_entry, ffn_entry, *gmm_entries]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi_line(), flush=True)

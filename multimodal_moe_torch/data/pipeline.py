@@ -352,6 +352,8 @@ def prefetch_to_device(
     *,
     device=None,
     buffer_size: int = 2,
+    mesh=None,
+    shard: "tuple[int, int]" = (0, 1),
 ) -> Iterator[Dict[str, Any]]:
     """Move batches to ``device`` ahead of their consumer.
 
@@ -368,17 +370,31 @@ def prefetch_to_device(
     untouched. ``batch_valid`` stays a host array: the evaluator reads it
     there. A batch is yielded once ``buffer_size`` batches are queued.
 
-    JAX's ``sharding=`` (a batch split over a mesh, multi-process assembly)
-    waits for the multi-GPU port.
+    ``mesh=`` is JAX's ``sharding=``. ``shard`` is the loader's
+    ``(process_index, process_count)``. A loader of ``mesh.size`` processes
+    yields this rank's slice of the global batch already (the global batch
+    is the ranks' batches in rank order, as
+    ``make_array_from_process_local_data`` assembles it): its index must be
+    the rank. A single-process loader yields the global batch, and each rank
+    takes its rows (``batch_slice``) on the host.
     """
     from ..ops.preprocess import yuv420_to_rgb_u8
+    from ..parallel.mesh import batch_slice
 
     dev = resolve_device(device)
+    index, count = shard
+    if mesh is not None and count != 1 and (count, index) != (mesh.size, mesh.rank):
+        raise ValueError(f"a loader of process {index} of {count} on rank {mesh.rank} of a "
+                         f"{mesh.size}-rank mesh")
+    take_rows = mesh is not None and mesh.size > 1 and count == 1
     cuda = dev.type == "cuda"
     side = torch.cuda.Stream(device=dev) if cuda else None
     in_flight: "collections.deque" = collections.deque()  # (event, pinned sources)
 
     def _put(batch):
+        if take_rows:
+            rows = batch_slice(mesh, len(next(iter(batch.values()))))
+            batch = {k: v[rows] for k, v in batch.items()}
         out, pinned, made = {}, [], []
         consumer = torch.cuda.current_stream(dev) if cuda else None
         if cuda:  # device tensors in the batch were made on the consumer's stream

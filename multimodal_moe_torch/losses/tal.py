@@ -16,6 +16,11 @@ to ``(B, M, ...)`` with a validity mask and the assignment is dense
 
 Discrete choices keep JAX's rules: ``lax.top_k``'s order among ties
 (``stable_topk``) and ``argmax``'s first index.
+
+Under an active mesh (``parallel.mesh.use_mesh``) the loss is the global
+batch's: the assignment stays per image, and the three loss sums, the
+target sum and ``num_fg`` are summed over every rank (the loss sums with
+their gradient), so every rank holds the global loss and metrics.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch.nn.functional as F
 from ..models.yolo import REG_MAX
 from ..ops.boxes import elementwise_ciou, pairwise_iou
 from ..ops.nms import stable_topk
+from ..parallel.mesh import active_mesh
 
 ALPHA = 0.5
 BETA = 6.0
@@ -138,15 +144,13 @@ def yolo_loss(outputs: "Dict[str, torch.Tensor]", gt_labels: torch.Tensor,
     pred_scores = torch.sigmoid(cls_logits)
     assign = assign_targets(pred_scores.detach(), pred_boxes.detach(), anchor_points,
                             gt_labels, gt_boxes, gt_mask)
-    target_sum = assign.target_scores.sum().clamp_min(1.0)
-
     # Classification: BCE against the soft targets over all anchors.
-    cls_loss = optax_sigmoid_bce(cls_logits, assign.target_scores).sum() / target_sum
+    cls_sum = optax_sigmoid_bce(cls_logits, assign.target_scores).sum()
 
     # Box losses on foreground anchors, weighted by the target score.
     weight = assign.target_scores.sum(-1)                               # (B, A)
     ciou = elementwise_ciou(pred_boxes, assign.target_boxes)
-    box_loss = ((1.0 - ciou) * weight * assign.fg_mask).sum() / target_sum
+    box_sum = ((1.0 - ciou) * weight * assign.fg_mask).sum()
 
     # DFL to the assigned box as ltrb distances in stride units.
     t_lt = (anchor_points[None] - assign.target_boxes[..., 0:2]) / anchor_strides[None]
@@ -154,9 +158,22 @@ def yolo_loss(outputs: "Dict[str, torch.Tensor]", gt_labels: torch.Tensor,
     target_ltrb = torch.cat([t_lt, t_rb], dim=-1)
     logits4 = box_logits.reshape(box_logits.shape[:-1] + (4, REG_MAX))
     dfl = _dfl_loss(logits4, target_ltrb)
-    dfl_loss = (dfl * weight * assign.fg_mask).sum() / target_sum
+    dfl_sum = (dfl * weight * assign.fg_mask).sum()
+
+    target_sum = assign.target_scores.sum()
+    num_fg = assign.fg_mask.sum()
+    mesh = active_mesh()
+    if mesh is not None:
+        sums = mesh.all_reduce(torch.stack([cls_sum, box_sum, dfl_sum, target_sum,
+                                            num_fg.to(target_sum.dtype)]))
+        cls_sum, box_sum, dfl_sum, target_sum = sums[:4]
+        num_fg = sums[4].round().long()
+    target_sum = target_sum.clamp_min(1.0)
+    cls_loss = cls_sum / target_sum
+    box_loss = box_sum / target_sum
+    dfl_loss = dfl_sum / target_sum
 
     total = BOX_GAIN * box_loss + CLS_GAIN * cls_loss + DFL_GAIN * dfl_loss
     metrics = {"loss": total, "box_loss": box_loss, "cls_loss": cls_loss,
-               "dfl_loss": dfl_loss, "num_fg": assign.fg_mask.sum()}
+               "dfl_loss": dfl_loss, "num_fg": num_fg}
     return total, metrics

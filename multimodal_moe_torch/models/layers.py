@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.int8_conv import int8_conv2d
+from ..parallel.mesh import active_mesh
 from ..quant import (
     QT,
     max_pool_codes,
@@ -132,6 +133,12 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     puts the unbiased one there). ``update_stats = False`` normalises the same
     way and leaves the running averages alone: a block that ``remat``
     recomputes during backward commits them once, as ``nn.remat`` does.
+
+    Under an active mesh (``parallel.mesh.use_mesh``) the statistics are
+    those of the global batch: ``[Σx, Σx², count]`` of the rank's slice are
+    summed over every rank before ``mean`` and ``E[x²]`` are formed, and the
+    gradient flows back through that sum (as in SyncBatchNorm); the running
+    averages then move identically on every rank.
     """
 
     update_stats = True
@@ -140,8 +147,17 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return super().forward(x)
         xf = x.float()
-        mean = xf.mean((0, 2, 3))
-        var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        mesh = active_mesh()
+        if mesh is None:
+            mean = xf.mean((0, 2, 3))
+            ex2 = (xf * xf).mean((0, 2, 3))
+        else:
+            c = xf.shape[1]
+            count = xf.new_full((1,), xf.numel() // c)
+            sums = mesh.all_reduce(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                                              count]))
+            mean, ex2 = sums[:c] / sums[2 * c], sums[c:2 * c] / sums[2 * c]
+        var = (ex2 - mean * mean).clamp_min(0.0)
         if self.update_stats:
             m = 1.0 - self.momentum
             with torch.no_grad():

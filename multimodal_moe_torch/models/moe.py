@@ -24,9 +24,23 @@ always runs :func:`moe_apply_sweep_int8` (dropless, every expert on every
 token, both products ``torch._int_mm``), whatever ``dispatch`` says; the
 router stays fp32.
 
-Single card: the JAX module's mesh sharding constraints have no counterpart
-here. Top-k over probabilities uses ``stable_topk`` (``lax.top_k``'s order:
-lower index first among ties), never ``torch.topk``.
+Under an active mesh (``parallel.mesh.use_mesh``: one rank a slice of the
+global batch) ``MoEFFN`` routes as JAX's one ``jit`` over the global batch
+does: the token count, the per-expert counts, the mean router probability
+and the z-loss are summed over every rank (so are ``moe_aux_loss``,
+``expert_load``, ``capacity`` and ``auto``'s choice), and queue positions
+run in global token order (the rank's own cumsum plus the counts of the
+ranks before it; only the drop decision reads them). With experts sharded
+over the mesh's expert axis (``parallel.mesh.shard_module``), the tokens
+and their routing are gathered over the expert group, each rank runs its
+own experts (``sweep``: over every gathered token; ``gmm``: kernel B3 over
+the pairs routed to them; ``sparse``: their capacity slots of the group's
+tokens; ``dense``: as the sweep with the gates of the pairs within
+capacity, the same sums as the ``(T, E, C)`` einsums, each slot holding
+one token), and the partial combine is summed over the expert group, each
+rank keeping its own rows. Top-k over probabilities uses ``stable_topk``
+(``lax.top_k``'s order: lower index first among ties), never
+``torch.topk``.
 """
 
 from __future__ import annotations
@@ -41,10 +55,13 @@ from torch import nn
 from ..ops import gmm_kernel, moe_kernels
 from ..ops.int8_conv import int_mm
 from ..ops.nms import stable_topk
+from ..parallel.mesh import EXPERT_AXIS, active_mesh, expert_rows
 from ..quant import QT, record, recording, register_quant
 
 # 5 labelled solar-elevation bins + "missing" (data/solar.py of the JAX package).
 NUM_SOLAR_BINS = 6
+# The routers' aux-loss weights: Switch balance and ST-MoE z-loss.
+BALANCE_COEF, Z_LOSS_COEF = 0.01, 1e-3
 
 
 class RouterOutput(NamedTuple):
@@ -63,14 +80,46 @@ class RouterDecision(NamedTuple):
     expert_load: torch.Tensor  # (E,)
 
 
-def _aux_loss(logits, probs, counts, t, k, balance_coef, z_loss_coef):
+def _aux_loss(logits, probs, counts, t, k, balance_coef, z_loss_coef, mesh=None):
     """Switch balance ``E·Σ f_e·P_e`` (f from the pre-capacity top-k counts)
-    plus the router z-loss on the logsumexp."""
+    plus the router z-loss on the logsumexp. On a ``mesh``, ``counts`` and
+    ``t`` are the global batch's, and the sums of the probabilities and of
+    the squared logsumexp are summed over every rank (with their gradient)."""
     e = logits.shape[-1]
     f = counts / (t * k) * e
-    balance = (f * probs.mean(0)).sum() * e
-    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    lse2 = torch.logsumexp(logits, dim=-1) ** 2
+    if mesh is None:
+        p_mean, z = probs.mean(0), torch.mean(lse2)
+    else:
+        sums = mesh.all_reduce(torch.cat([probs.sum(0), lse2.sum()[None]]))
+        p_mean, z = sums[:e] / t, sums[e] / t
+    balance = (f * p_mean).sum() * e
     return balance_coef * balance + z_loss_coef * z
+
+
+def _queue_positions(topk_idx, e):
+    """Each selection's place in its expert's queue, over the flattened
+    ``(T·k)`` selections (token-major, slot-minor), counting from 0."""
+    t, k = topk_idx.shape
+    onehot = F.one_hot(topk_idx.reshape(-1), e)                     # (T·k, E)
+    # The exclusive cumsum over T·k of each expert's column, taken as one
+    # 1-D scan over the expert-major flattening (a CUDA scan along dim 0 of
+    # a (T·k, E) tensor runs one thread per column: ~1 s at T·k = 3.5M).
+    # Each expert's running count then drops the totals of the experts
+    # before it.
+    running = onehot.T.reshape(-1).cumsum(0).reshape(e, -1)
+    running = running - F.pad(running[:-1, -1:], (0, 0, 1, 0))
+    position_flat = running.T - onehot
+    return torch.gather(position_flat.reshape(t, k, e), -1, topk_idx[..., None])[..., 0]
+
+
+def _select_by_logits(logits, probs, k):
+    """:func:`route_top_k`'s selection, ``logits >= the k-th`` (ties can
+    select more than k), and its gates renormalised over the selection."""
+    kth = torch.topk(logits, k, dim=-1).values[..., -1:]  # a value: tie order is moot
+    selected = logits >= kth
+    gates = torch.where(selected, probs, 0.0)
+    return selected, gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
 
 
 def _topk_probs(logits, k):
@@ -82,18 +131,15 @@ def _topk_probs(logits, k):
     return logits, probs, topk_idx, gates, counts
 
 
-def route_top_k(logits, *, k: int, capacity: int, balance_coef: float = 0.01,
-                z_loss_coef: float = 1e-3) -> RouterOutput:
+def route_top_k(logits, *, k: int, capacity: int, balance_coef: float = BALANCE_COEF,
+                z_loss_coef: float = Z_LOSS_COEF) -> RouterOutput:
     """Capacity-constrained top-k routing, dense ``(T, E, C)`` outputs.
     Selection is by logits with ``logits >= kth``, so ties can select more
     than k; tokens past an expert's capacity are dropped for that expert."""
     logits = logits.float()
     t, e = logits.shape
     probs = torch.softmax(logits, dim=-1)
-    kth = torch.topk(logits, k, dim=-1).values[..., -1:]  # a value: tie order is moot
-    topk = logits >= kth                                            # (T, E)
-    gates = torch.where(topk, probs, 0.0)
-    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    topk, gates = _select_by_logits(logits, probs, k)               # (T, E)
 
     position = torch.cumsum(topk.int(), dim=0) - 1                  # (T, E)
     within = topk & (position < capacity)
@@ -108,29 +154,20 @@ def route_top_k(logits, *, k: int, capacity: int, balance_coef: float = 0.01,
     return RouterOutput(combine, pos_onehot > 0, aux, load)
 
 
-def route_top_k_sparse(logits, *, k: int, capacity: int, balance_coef: float = 0.01,
-                       z_loss_coef: float = 1e-3) -> RouterDecision:
+def route_top_k_sparse(logits, *, k: int, capacity: int, balance_coef: float = BALANCE_COEF,
+                       z_loss_coef: float = Z_LOSS_COEF) -> RouterDecision:
     """The same routing as :func:`route_top_k` in O(T·k) outputs, selecting
     by probabilities. Queue positions follow the flattened ``(T·k)``
     selections, token-major and slot-minor."""
     logits, probs, topk_idx, gates, counts = _topk_probs(logits, k)
     t, e = logits.shape
-    onehot = F.one_hot(topk_idx.reshape(-1), e)                     # (T·k, E)
-    # The exclusive cumsum over T·k of each expert's column, taken as one
-    # 1-D scan over the expert-major flattening (a CUDA scan along dim 0 of
-    # a (T·k, E) tensor runs one thread per column: ~1 s at T·k = 3.5M).
-    # Each expert's running count then drops the totals of the experts
-    # before it.
-    running = onehot.T.reshape(-1).cumsum(0).reshape(e, -1)
-    running = running - F.pad(running[:-1, -1:], (0, 0, 1, 0))
-    position_flat = running.T - onehot
-    position = torch.gather(position_flat.reshape(t, k, e), -1, topk_idx[..., None])[..., 0]
+    position = _queue_positions(topk_idx, e)
     aux = _aux_loss(logits, probs, counts, t, k, balance_coef, z_loss_coef)
     return RouterDecision(topk_idx, gates, position, position < capacity, aux, counts / t)
 
 
-def route_top_k_dropless(logits, *, k: int, balance_coef: float = 0.01,
-                         z_loss_coef: float = 1e-3):
+def route_top_k_dropless(logits, *, k: int, balance_coef: float = BALANCE_COEF,
+                         z_loss_coef: float = Z_LOSS_COEF):
     """Top-k routing without capacity: ``(expert_idx (T, k), gates (T, k),
     aux, expert_load (E,))``."""
     logits, probs, topk_idx, gates, counts = _topk_probs(logits, k)
@@ -171,41 +208,55 @@ def moe_apply_sparse(tokens, decision: RouterDecision, w1, b1, w2, b2, *, capaci
     return weighted.reshape(t, k, d).sum(dim=1)
 
 
+def sweep_combine(tokens, comb, w1, b1, w2, b2, *, activation=F.silu) -> torch.Tensor:
+    """Every expert of ``w1`` over every token, combined with ``comb`` (T,
+    E): its column per expert, multiply-then-sum over E."""
+    dtype = tokens.dtype
+    mid = activation(torch.matmul(tokens, w1.to(dtype)) + b1.to(dtype))      # (E, T, h)
+    out_e = torch.matmul(mid, w2.to(dtype)) + b2.to(dtype)                   # (E, T, d)
+    return (out_e * comb.T.to(dtype)[:, :, None]).sum(dim=0)
+
+
+def gate_matrix(expert_idx, gates, e: int) -> torch.Tensor:
+    """The ``(T, E)`` float32 matrix of each token's gate per expert."""
+    comb = torch.zeros((expert_idx.shape[0], e), dtype=torch.float32, device=gates.device)
+    return comb.scatter_add(1, expert_idx, gates.float())
+
+
 def moe_apply_sweep(tokens, expert_idx, gates, w1, b1, w2, b2, *,
                     activation=F.silu) -> torch.Tensor:
     """Every expert over every token, combined with the ``(T, E)`` gate
     matrix as multiply-then-sum over E (dropless)."""
-    t = tokens.shape[0]
-    e = w1.shape[0]
-    dtype = tokens.dtype
-    mid = activation(torch.matmul(tokens, w1.to(dtype)) + b1.to(dtype))      # (E, T, h)
-    out_e = torch.matmul(mid, w2.to(dtype)) + b2.to(dtype)                   # (E, T, d)
-    comb = torch.zeros((t, e), dtype=torch.float32, device=tokens.device)
-    comb.scatter_add_(1, expert_idx, gates.float())
-    return (out_e * comb.T.to(dtype)[:, :, None]).sum(dim=0)
+    comb = gate_matrix(expert_idx, gates, w1.shape[0])
+    return sweep_combine(tokens, comb, w1, b1, w2, b2, activation=activation)
 
 
 def moe_apply_gmm(tokens, expert_idx, gates, w1, b1, w2, b2, *,
-                  activation=F.silu) -> torch.Tensor:
+                  activation=F.silu, first_expert: int = 0) -> torch.Tensor:
     """Dropless grouped-GEMM dispatch (megablox ``gmm``): sort the ``T·k``
     (token, expert) pairs by expert (stably, as ``jnp.argsort``), run both
     FFN products as grouped GEMMs over the contiguous expert segments in
     float32, cast to the compute type and add each row's expert bias, then
-    unsort and combine with the gate weights."""
+    unsort and combine with the gate weights. ``w1``… hold the experts
+    ``[first_expert, first_expert + E_local)`` (a rank's shard): the pairs
+    of the other experts sort after the last segment, where ``gmm`` writes
+    zeros, and weigh 0."""
     t, d = tokens.shape
     e = w1.shape[0]
     k = expert_idx.shape[1]
     dtype = tokens.dtype
 
-    flat_expert = expert_idx.reshape(-1)                                    # (T·k,)
-    order = torch.argsort(flat_expert, stable=True)
+    flat_expert = expert_idx.reshape(-1) - first_expert                     # (T·k,)
+    local = (flat_expert >= 0) & (flat_expert < e)
+    key = torch.where(local, flat_expert, e)
+    order = torch.argsort(key, stable=True)
     token_ids = torch.arange(t * k, device=tokens.device) // k
     src = tokens[token_ids[order]]                                          # (T·k, d) sorted
     # The segment sizes stay on the device (a bincount would read its
     # length on the host).
-    group_sizes = torch.zeros(e, dtype=torch.long, device=tokens.device).scatter_add_(
-        0, flat_expert, torch.ones_like(flat_expert)).to(torch.int32)
-    eid = flat_expert[order]
+    group_sizes = torch.zeros(e + 1, dtype=torch.long, device=tokens.device).scatter_add_(
+        0, key, torch.ones_like(key))[:e].to(torch.int32)
+    eid = key[order].clamp_max(e - 1)
 
     # Each row's expert bias by index_select, whose gradient adds the rows
     # with atomics: an advanced-index gather's gradient walks the ~T·k/E
@@ -216,7 +267,7 @@ def moe_apply_gmm(tokens, expert_idx, gates, w1, b1, w2, b2, *,
                   + b2[:, 0].index_select(0, eid).to(dtype))
 
     inv = torch.empty_like(order).scatter_(0, order, torch.arange(t * k, device=order.device))
-    weighted = out_sorted[inv] * gates.reshape(-1, 1).to(dtype)
+    weighted = out_sorted[inv] * (gates.reshape(-1) * local).reshape(-1, 1).to(dtype)
     return weighted.reshape(t, k, d).sum(dim=1)
 
 
@@ -305,8 +356,8 @@ class ContextRouter(nn.Module):
     """Context gate + :func:`route_top_k` (dense ``(T, E, C)`` outputs)."""
 
     def __init__(self, dim: int, num_experts: int, num_context_bins: int = NUM_SOLAR_BINS,
-                 k: int = 2, capacity_factor: float = 1.25, balance_coef: float = 0.01,
-                 z_loss_coef: float = 1e-3):
+                 k: int = 2, capacity_factor: float = 1.25, balance_coef: float = BALANCE_COEF,
+                 z_loss_coef: float = Z_LOSS_COEF):
         super().__init__()
         self.gate = ContextGate(dim, num_experts, num_context_bins)
         self.num_experts, self.k, self.capacity_factor = num_experts, k, capacity_factor
@@ -399,6 +450,9 @@ class MoEFFN(nn.Module):
             out = moe_apply_sweep_int8(tokens.q, tokens.s, topk_idx, gates, self.w1_q, self.s_w1,
                                        self.b1, self.s_mid, self.w2_q, self.s_w2, self.b2)
             return tokens_fp + out, {"moe_aux_loss": aux_loss, "expert_load": expert_load}
+        mesh = active_mesh()
+        if mesh is not None:
+            return self._forward_on_mesh(tokens, context_ids, mesh)
         t = tokens.shape[0]
         e = self.num_experts
         capacity = max(int(t * self.k * self.capacity_factor / e), self.k)
@@ -432,3 +486,66 @@ class MoEFFN(nn.Module):
             aux_loss, expert_load = rd.aux_loss, rd.expert_load
         aux = {"moe_aux_loss": aux_loss, "expert_load": expert_load}
         return tokens + out.to(tokens.dtype), aux
+
+    def _forward_on_mesh(self, tokens, context_ids, mesh):
+        """``forward`` on this rank's tokens with the global batch's routing
+        (the module docstring): every rank calls it in step, with slices of
+        one size."""
+        e, k = self.num_experts, self.k
+        t_loc = tokens.shape[0]
+        t = t_loc * mesh.size
+        capacity = max(int(t * k * self.capacity_factor / e), k)
+        mode = resolve_dispatch(self.dispatch, t, e)
+        w1, b1, w2, b2 = self.experts_w1, self.experts_b1, self.experts_w2, self.experts_b2
+        rows = expert_rows(mesh, e)
+        if w1.shape[0] != rows.stop - rows.start:
+            raise ValueError(f"{w1.shape[0]} experts held on a mesh of {mesh.num_expert} expert "
+                             f"shards of {e}: shard them (parallel.mesh.shard_module)")
+
+        if mode == "dense":
+            logits = self.router(tokens, context_ids).float()
+            probs = torch.softmax(logits, dim=-1)
+            selected, gates = _select_by_logits(logits, probs, k)
+            local_counts = selected.sum(0)
+        else:
+            logits, probs, topk_idx, gates, local_counts = _topk_probs(
+                self.router(tokens, context_ids), k)
+        table = mesh.gather(local_counts.long()[None])                  # (ranks, E)
+        counts = table.sum(0).float()
+        before = table[:mesh.rank].sum(0)                               # earlier ranks' queue
+        aux = _aux_loss(logits, probs, counts, t, k, BALANCE_COEF, Z_LOSS_COEF, mesh)
+        load = counts / t
+
+        sharded = mesh.num_expert > 1
+        gather = (lambda a: mesh.gather(a, EXPERT_AXIS)) if sharded else (lambda a: a)
+        x = gather(tokens.to(self.dtype))
+        if mode == "dense":
+            position = torch.cumsum(selected.long(), dim=0) - 1 + before
+            comb = torch.where(selected & (position < capacity), gates, 0.0)
+            partial = sweep_combine(x, gather(comb)[:, rows], w1, b1, w2, b2)
+        elif mode == "sweep":
+            comb = gate_matrix(topk_idx, gates, e)
+            partial = sweep_combine(x, gather(comb)[:, rows], w1, b1, w2, b2)
+        elif mode == "gmm":
+            partial = moe_apply_gmm(x, gather(topk_idx), gather(gates), w1, b1, w2, b2,
+                                    first_expert=rows.start)
+        else:
+            if self.use_fused_ffn:
+                capacity = moe_kernels.round_up_capacity(capacity)
+            position = _queue_positions(topk_idx, e) + before[topk_idx]
+            # The slots of the expert group's tokens, from the first position
+            # they take in each queue: at most min(C, the group's tokens).
+            first = table[:mesh.d * mesh.num_expert].sum(0)
+            idx = gather(topk_idx)
+            slot = gather(position) - first[idx]
+            valid = gather((position < capacity).long()).bool()
+            valid &= (idx >= rows.start) & (idx < rows.stop)
+            slots = min(capacity, x.shape[0])
+            if self.use_fused_ffn:
+                slots = moe_kernels.round_up_capacity(slots)
+            decision = RouterDecision(idx - rows.start, gather(gates), slot, valid, aux, load)
+            partial = moe_apply_sparse(x, decision, w1, b1, w2, b2, capacity=slots,
+                                       use_fused_ffn=self.use_fused_ffn)
+        out = mesh.own_rows(mesh.all_reduce(partial, EXPERT_AXIS), EXPERT_AXIS) if sharded \
+            else partial
+        return tokens + out.to(tokens.dtype), {"moe_aux_loss": aux, "expert_load": load}

@@ -32,6 +32,8 @@ class MoEYoloDetector(YoloDetector):
     context bin per image (default: the "missing" bin) and returns the
     YOLO outputs plus ``moe_aux_loss`` (the mean over levels) and
     ``expert_load`` ``(3, E)``. The routers stay float32 in a bf16 model.
+    Under an active mesh each level's ``moe_aux_loss`` and ``expert_load``
+    are the global batch's (``models/moe.py``), and so are their means.
     """
 
     context_aware = True  # serving.make_serving_step passes context_ids

@@ -265,6 +265,10 @@ class YoloDetector(nn.Module):
     float32 outside its int8 convs.
     """
 
+    # Every batch reduction of its training step (BatchNorm, yolo_loss, the
+    # MoE routers) is global under parallel.mesh.use_mesh: it trains on a mesh.
+    global_batch_reductions = True
+
     def __init__(self, num_classes: int = 1, variant: str = "s",
                  dtype: torch.dtype = torch.float32, arch: str = "tpu",
                  generator: "torch.Generator | None" = None, int8: bool = False,

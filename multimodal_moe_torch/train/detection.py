@@ -1,6 +1,6 @@
 """Detection trainer: the train step, the epoch loop, best/last checkpoints.
 
-Counterpart of ``multimodal_moe_tpu/train/detection.py`` on one device. One
+Counterpart of ``multimodal_moe_tpu/train/detection.py``. One
 trainer serves every detector family: the model and its loss are injected
 (the YOLO loss, ``losses.tal.yolo_loss``, unless another is given).
 The step is the JAX step written out: ``/255``, ``train_augment``, the
@@ -8,6 +8,18 @@ forward in train mode (ground truth and denoising draws for a model with
 ``denoising_capable``, ``context_ids`` for one with ``context_aware``), the
 loss, its gradients, ``TrainState.apply_gradients``. Random draws come from
 ``torch.Generator``s seeded from ``(seed, step)``; they are not JAX's.
+
+With ``mesh=`` (``parallel.mesh.create_mesh``, one process a rank) the
+step computes what the one-process step computes on the global batch, as
+JAX's ``jit`` over the mesh does: each rank takes its slice of the batch
+and of the global batch's draws; inside ``use_mesh`` the model and the
+loss form their batch statistics over every rank, so every rank holds the
+global loss ``L``. Each rank differentiates ``L / ranks`` (the first
+backward ``all_reduce`` sums the ranks' ``1/ranks`` back to 1, so each
+rank's activations get their exact share of ``∂L``), and the gradients are
+summed once: replicated tensors over the world group, ``experts_*`` shards
+over the data group. Only models whose batch reductions are all global
+(``global_batch_reductions``: YOLO, MoE-YOLO) train on more than one rank.
 """
 
 from __future__ import annotations
@@ -25,7 +37,17 @@ import torch
 from .._device import resolve_device
 from ..data.pipeline import prefetch_to_device
 from ..losses.tal import yolo_loss
-from ..ops.augment import train_augment
+from ..ops.augment import augment_draws, train_augment
+from ..parallel.distributed import rank_device
+from ..parallel.mesh import (
+    Mesh,
+    barrier,
+    batch_slice,
+    broadcast_module,
+    reduce_gradients,
+    shard_module,
+    use_mesh,
+)
 from .state import CheckpointManager, TrainState, make_train_state
 
 BATCH_KEYS = ("image", "gt_boxes", "gt_labels", "gt_mask", "solar_bin")
@@ -69,26 +91,37 @@ def _fitness(metrics: dict) -> float:
 
 class DetectionTrainer:
     """``model`` is the template: ``init_state`` trains a copy of it on
-    ``device`` (the card unless ``torch.device("cpu")`` is given)."""
+    ``device`` (the card unless ``torch.device("cpu")`` is given); with
+    ``mesh``, the rank's device (``parallel.distributed.rank_device``)."""
 
     def __init__(self, model: torch.nn.Module, cfg: DetTrainConfig, *,
-                 loss_fn: Callable = yolo_loss, steps_per_epoch: Optional[int] = None,
-                 device=None):
-        self.device = resolve_device(device)
+                 loss_fn: Callable = yolo_loss, mesh: "Optional[Mesh]" = None,
+                 steps_per_epoch: Optional[int] = None, device=None):
+        if mesh is not None and mesh.size > 1 and not getattr(
+                model, "global_batch_reductions", False):
+            raise NotImplementedError(
+                f"{type(model).__name__} does not train on a mesh of {mesh.size} ranks: some "
+                "of its batch reductions would be per rank (RT-DETR: detr_loss's num_pos and "
+                "num_gt, the denoising draws; ROADMAP.md, A6b)")
+        self.device = rank_device(device) if mesh is not None else resolve_device(device)
         self.model = model
         self.cfg = cfg
         self.loss_fn = loss_fn
+        self.mesh = mesh
         self.steps_per_epoch = steps_per_epoch
 
     # -- state ---------------------------------------------------------------
     def init_state(self) -> TrainState:
         """A copy of the template model on the device in train mode, the
         optimizer of the config (schedule over ``steps_per_epoch``) and the
-        EMA."""
+        EMA. On a mesh every rank takes rank 0's copy, then keeps its expert
+        shards (the EMA's too)."""
         spe = self.steps_per_epoch or 100
         model = copy.deepcopy(self.model).to(self.device).train()
+        if self.mesh is not None and self.mesh.world_group is not None:
+            shard_module(broadcast_module(model, self.mesh), self.mesh)
         return make_train_state(
-            model, lr0=self.cfg.lr0, lrf=self.cfg.lrf, momentum=self.cfg.momentum,
+            model, mesh=self.mesh, lr0=self.cfg.lr0, lrf=self.cfg.lrf, momentum=self.cfg.momentum,
             weight_decay=self.cfg.weight_decay, warmup_steps=int(spe * self.cfg.warmup_epochs),
             total_steps=spe * self.cfg.epochs, optimizer=self.cfg.optimizer,
         )
@@ -101,17 +134,26 @@ class DetectionTrainer:
     # -- step ----------------------------------------------------------------
     def train_step(self, state: TrainState, batch: "Dict[str, torch.Tensor]",
                    draws: "Optional[dict]" = None) -> "tuple[TrainState, Dict[str, torch.Tensor]]":
-        """One step on a batch already on the device. ``draws`` replaces the
-        step's random numbers (``{"augment": train_augment's draws,
-        "denoise": (shift_u, scale_u)}``), for tests that feed JAX's."""
-        cfg, model = self.cfg, state.model
+        """One step on a batch already on the device (on a mesh, this rank's
+        slice of the global batch). ``draws`` replaces the step's random
+        numbers (``{"augment": train_augment's draws, "denoise": (shift_u,
+        scale_u)}``, for the global batch), for tests that feed JAX's."""
+        cfg, model, mesh = self.cfg, state.model, self.mesh
         draws = draws or {}
         images = batch["image"].float() / 255.0
         gt_boxes = batch["gt_boxes"]
         if cfg.hsv_aug or cfg.hflip_prob > 0:
+            aug = draws.get("augment")
+            if mesh is not None:   # the global batch's draws, this rank's rows
+                rows = batch_slice(mesh, images.shape[0] * mesh.size)
+                if aug is None:
+                    aug = augment_draws(images.shape[0] * mesh.size,
+                                        self._generator(state.step, 0), images.device,
+                                        hflip_prob=cfg.hflip_prob)
+                aug = {k: v[rows] for k, v in aug.items()}
             images, gt_boxes = train_augment(
                 images, gt_boxes, generator=self._generator(state.step, 0),
-                draws=draws.get("augment"), hsv=cfg.hsv_aug, hflip_prob=cfg.hflip_prob)
+                draws=aug, hsv=cfg.hsv_aug, hflip_prob=cfg.hflip_prob)
         extra = {}
         if getattr(model, "context_aware", False) and "solar_bin" in batch:
             extra["context_ids"] = batch["solar_bin"]
@@ -119,16 +161,25 @@ class DetectionTrainer:
             extra.update(gt_boxes=gt_boxes, gt_mask=batch["gt_mask"],
                          denoise_generator=self._generator(state.step, 1),
                          dn_draws=draws.get("denoise"))
-        outputs = model(images, train=True, **extra)
-        total, metrics = self.loss_fn(outputs, batch["gt_labels"], gt_boxes, batch["gt_mask"])
-        names, params = zip(*model.named_parameters())
-        grads = torch.autograd.grad(total, params, allow_unused=True, materialize_grads=True)
-        state.apply_gradients(dict(zip(names, grads)))
+        with use_mesh(mesh):
+            outputs = model(images, train=True, **extra)
+            total, metrics = self.loss_fn(outputs, batch["gt_labels"], gt_boxes,
+                                          batch["gt_mask"])
+            names, params = zip(*model.named_parameters())
+            objective = total / mesh.size if mesh is not None else total
+            grads = torch.autograd.grad(objective, params, allow_unused=True,
+                                        materialize_grads=True)
+        grads = dict(zip(names, grads))
+        if mesh is not None:
+            grads = reduce_gradients(grads, mesh)
+        state.apply_gradients(grads)
         return state, {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
 
     def _to_device(self, batch) -> "Dict[str, torch.Tensor]":
-        """One batch through ``prefetch_to_device``, cut to the step's keys."""
-        (out,) = prefetch_to_device(iter([batch]), device=self.device, buffer_size=1)
+        """One batch through ``prefetch_to_device``, cut to the step's keys
+        (on a mesh, this rank's rows of a global batch)."""
+        (out,) = prefetch_to_device(iter([batch]), device=self.device, buffer_size=1,
+                                    mesh=self.mesh)
         return _step_keys(out)
 
     # -- loop ----------------------------------------------------------------
@@ -139,7 +190,16 @@ class DetectionTrainer:
         cfg = self.cfg
         run_dir = Path(run_dir)
         self.steps_per_epoch = self.steps_per_epoch or len(train_loader)
-        ckpt = CheckpointManager(run_dir / "weights")
+        ckpt = CheckpointManager(run_dir / "weights", mesh=self.mesh)
+        # On a mesh every rank saves (the expert shards are gathered) and
+        # reads the progress file; rank 0 alone writes files and logs. The
+        # metrics are global, so every rank takes the same branches.
+        is_lead = self.mesh is None or self.mesh.rank == 0
+        if val_fn is not None and self.mesh is not None and self.mesh.size > 1:
+            raise NotImplementedError("validation inside fit on a mesh of more than one rank "
+                                      "is not ported (ROADMAP.md, A6b)")
+        shard = (getattr(train_loader, "process_index", 0),
+                 getattr(train_loader, "process_count", 1))
         if state is None:
             state = self.init_state()
 
@@ -190,7 +250,8 @@ class DetectionTrainer:
             # Host batches (RGB, or YUV420 planes that become ``image`` on
             # the device) are copied ahead of the step; the resident
             # loader's device batches pass through untouched.
-            for batch in prefetch_to_device(iter(train_loader), device=self.device):
+            for batch in prefetch_to_device(iter(train_loader), device=self.device,
+                                            mesh=self.mesh, shard=shard):
                 state, metrics = self.train_step(state, _step_keys(batch))
                 pending.append(metrics)
                 if len(pending) >= fetch_every:
@@ -215,23 +276,27 @@ class DetectionTrainer:
                 epochs_without_improvement = 0
             else:
                 epochs_without_improvement += 1
-            print(f"epoch {epoch + 1}/{cfg.epochs} "
-                  + " ".join(f"{k}={v:.4f}" for k, v in row.items() if k != "epoch"))
-            progress_path.write_text(json.dumps({
-                "epoch": epoch,
-                "best_fitness": best_fitness,
-                "epochs_without_improvement": epochs_without_improvement,
-                "train_wall_s_accum": wall_accum + (time.perf_counter() - t_start),
-                "history": history,
-            }))
+            if is_lead:
+                print(f"epoch {epoch + 1}/{cfg.epochs} "
+                      + " ".join(f"{k}={v:.4f}" for k, v in row.items() if k != "epoch"))
+                progress_path.write_text(json.dumps({
+                    "epoch": epoch,
+                    "best_fitness": best_fitness,
+                    "epochs_without_improvement": epochs_without_improvement,
+                    "train_wall_s_accum": wall_accum + (time.perf_counter() - t_start),
+                    "history": history,
+                }))
+            barrier(self.mesh)
             epochs_this_run += 1
             if epochs_without_improvement > cfg.patience:
-                print(f"Early stopping at epoch {epoch + 1} (patience {cfg.patience}).")
+                if is_lead:
+                    print(f"Early stopping at epoch {epoch + 1} (patience {cfg.patience}).")
                 stopped_early = True
                 break
             if max_epochs_this_run and epochs_this_run >= max_epochs_this_run:
-                print(f"Pausing after {epochs_this_run} epochs this run "
-                      "(resume with --resume to continue).")
+                if is_lead:
+                    print(f"Pausing after {epochs_this_run} epochs this run "
+                          "(resume with --resume to continue).")
                 break
 
         wall = wall_accum + (time.perf_counter() - t_start)

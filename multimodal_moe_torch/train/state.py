@@ -13,6 +13,13 @@ raw ``*kernel`` parameters, never biases, norm scales or
 ``dn_content_embed``. Checkpoints are ``torch.save`` files in the JAX
 layout of directories (``weights/last``, ``weights/best``) with the same
 crash-safe ``.new``/``.old`` swap.
+
+On a mesh (``parallel.mesh``) a rank holds its shard of every
+``experts_*`` tensor: ``clip_by_global_norm`` adds the shards' squared
+norms over the expert group, so it clips by the norm of the whole
+parameter set; checkpoints gather the shards first and rank 0 writes the
+one-process layout, fenced by barriers as JAX's process 0 is (a run on any
+mesh, or none, reads any of them).
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ from typing import Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 from torch import nn
+
+from ..parallel.mesh import EXPERT_AXIS, Mesh, barrier, gather_params, is_expert, shard_params
 
 # Flax leaf name of a torch parameter, by the type of the module holding it.
 _KERNEL_MODULES = (nn.Linear, nn.Conv2d)
@@ -79,7 +88,7 @@ class Optimizer:
                  lr0: float = 0.01, lrf: float = 0.01, momentum: float = 0.937,
                  weight_decay: float = 5e-4, warmup_steps: int = 1000,
                  total_steps: int = 10000, optimizer: str = "sgd",
-                 grad_clip_norm: Optional[float] = 10.0):
+                 grad_clip_norm: Optional[float] = 10.0, mesh: "Optional[Mesh]" = None):
         if optimizer not in ("sgd", "adamw"):
             raise ValueError(f"unknown optimizer: {optimizer}")
         warmup_steps = max(1, min(warmup_steps, max(total_steps - 1, 1)))
@@ -88,6 +97,7 @@ class Optimizer:
         self.schedule = make_schedule(lr0, lrf, warmup_steps, total_steps)
         self.kind, self.momentum, self.weight_decay = optimizer, momentum, weight_decay
         self.grad_clip_norm = grad_clip_norm
+        self.mesh = mesh
         slots = ("mu", "nu") if optimizer == "adamw" else ("trace",)
         self.state: "Dict[str, object]" = {"count": 0}
         for slot in slots:
@@ -103,7 +113,8 @@ class Optimizer:
         params = [self.params[k] for k in names]
         g = [grads[k] for k in names]
         if self.grad_clip_norm is not None:
-            norm = global_norm(g)
+            norm = global_norm(g) if not _expert_sharded(self.mesh) else _sharded_norm(
+                g, [is_expert(k) for k in names], self.mesh)
             if not bool(norm < self.grad_clip_norm):
                 g = torch._foreach_mul(torch._foreach_div(g, norm), self.grad_clip_norm)
         lr = self.schedule(count)
@@ -199,13 +210,38 @@ class TrainState:
                 "opt_state": self.opt.state_dict(), "ema_params": dict(self.ema_params)}
 
 
-def make_train_state(model: nn.Module, **optimizer_kw) -> TrainState:
+def make_train_state(model: nn.Module, mesh: "Optional[Mesh]" = None,
+                     **optimizer_kw) -> TrainState:
     """Step 0, the optimizer over ``model``'s parameters with the decay mask
-    of its Flax paths, and the EMA as a copy of the parameters."""
+    of its Flax paths, and the EMA as a copy of the parameters (on a
+    ``mesh``, of this rank's shards)."""
     params = dict(model.named_parameters())
-    opt = Optimizer(params, decay_mask(model), **optimizer_kw)
+    opt = Optimizer(params, decay_mask(model), mesh=mesh, **optimizer_kw)
     ema = {k: p.detach().clone() for k, p in params.items()}
     return TrainState(step=0, model=model, opt=opt, ema_params=ema)
+
+
+def _tensor_dicts(sd: dict, fn: Callable) -> dict:
+    """``fn`` over each tensor dict of a state dict: the model, the EMA and
+    every optimizer slot."""
+    out = dict(sd)
+    for key in ("model", "ema_params"):
+        if key in sd:
+            out[key] = fn(sd[key])
+    if "opt_state" in sd:
+        out["opt_state"] = {k: fn(v) if isinstance(v, dict) else v
+                            for k, v in sd["opt_state"].items()}
+    return out
+
+
+def one_process_state_dict(state: TrainState, mesh: "Optional[Mesh]" = None) -> dict:
+    """``state.state_dict()`` in the one-process layout: on a mesh, every
+    expert shard (parameters, EMA, optimizer slots) gathered over the
+    expert group, a collective every rank calls."""
+    sd = state.state_dict()
+    if not _expert_sharded(mesh):
+        return sd
+    return _tensor_dicts(sd, lambda d: gather_params(d, mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -215,40 +251,56 @@ def make_train_state(model: nn.Module, **optimizer_kw) -> TrainState:
 class CheckpointManager:
     """best/last checkpoints with resume, each a directory holding
     ``state.pt`` (``TrainState.state_dict``), read back with
-    ``weights_only=True``."""
+    ``weights_only=True``.
+
+    With a ``mesh`` every rank calls ``save``, ``restore``, ``restore_eval``
+    and ``has`` in the same order: ``save`` gathers the expert shards (a
+    collective) and rank 0 writes, ``restore`` slices them back on every
+    rank; the file bookkeeping (stale cleanup, the swap, recovery) runs on
+    rank 0, between barriers."""
 
     FILE = "state.pt"
 
-    def __init__(self, run_dir: "str | Path"):
+    def __init__(self, run_dir: "str | Path", mesh: "Optional[Mesh]" = None):
         self.run_dir = Path(run_dir).resolve()
-        self.run_dir.mkdir(parents=True, exist_ok=True)
+        self.mesh = mesh
+        if self._is_lead():
+            self.run_dir.mkdir(parents=True, exist_ok=True)
+        barrier(mesh)
 
     def _path(self, name: str) -> Path:
         return self.run_dir / name
+
+    def _is_lead(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
 
     def save(self, name: str, state: TrainState) -> Path:
         """Crash-safe save: write ``<name>.new``, then swap it in through
         ``<name>.old``; a crash between the two renames is repaired by
         ``_recover``."""
         path, new, old = self._path(name), self._path(name + ".new"), self._path(name + ".old")
-        for stale in (new, old):
-            if stale.exists():
-                shutil.rmtree(stale)
-        new.mkdir()
-        torch.save(state.state_dict(), new / self.FILE)
-        if path.exists():
-            path.rename(old)
-        new.rename(path)
-        if old.exists():
-            shutil.rmtree(old)
+        sd = one_process_state_dict(state, self.mesh)
+        if self._is_lead():
+            for stale in (new, old):
+                if stale.exists():
+                    shutil.rmtree(stale)
+            new.mkdir()
+            torch.save(sd, new / self.FILE)
+            if path.exists():
+                path.rename(old)
+            new.rename(path)
+            if old.exists():
+                shutil.rmtree(old)
+        barrier(self.mesh)
         return path
 
     def _recover(self, name: str) -> None:
         """``<name>`` missing and a fully written ``<name>.new`` present (a
         crash between the swap's renames): finish the swap."""
         path, new = self._path(name), self._path(name + ".new")
-        if not path.exists() and (new / self.FILE).exists():
+        if self._is_lead() and not path.exists() and (new / self.FILE).exists():
             new.rename(path)
+        barrier(self.mesh)
 
     def save_last(self, state: TrainState) -> Path:
         return self.save("last", state)
@@ -258,7 +310,10 @@ class CheckpointManager:
 
     def _load(self, name: str) -> dict:
         self._recover(name)
-        return torch.load(self._path(name) / self.FILE, map_location="cpu", weights_only=True)
+        raw = torch.load(self._path(name) / self.FILE, map_location="cpu", weights_only=True)
+        if not _expert_sharded(self.mesh):
+            return raw
+        return _tensor_dicts(raw, lambda d: shard_params(d, self.mesh))   # this rank's shards
 
     def restore(self, name: str, target: TrainState) -> TrainState:
         """The whole state, optimizer included, into ``target``. A checkpoint
@@ -296,6 +351,19 @@ def _copy_into(dst: "Dict[str, torch.Tensor]", src: "Dict[str, torch.Tensor]") -
     with torch.no_grad():
         for k, t in src.items():
             dst[k].copy_(t)
+
+
+def _expert_sharded(mesh: "Optional[Mesh]") -> bool:
+    return mesh is not None and mesh.num_expert > 1
+
+
+def _sharded_norm(tensors, sharded, mesh: Mesh) -> torch.Tensor:
+    """:func:`global_norm` of the whole parameter set from a rank's view:
+    the squared norms of the expert shards summed over the expert group."""
+    squares = torch.stack(torch._foreach_norm(list(tensors))) ** 2
+    mask = torch.tensor(sharded, device=squares.device)
+    experts = mesh.all_reduce(squares[mask].sum()[None], EXPERT_AXIS)[0]
+    return (squares[~mask].sum() + experts).sqrt()
 
 
 def global_norm(tensors: "Iterable[torch.Tensor]") -> torch.Tensor:

@@ -3,9 +3,13 @@
 Variant n in each dispatch mode (``dense``, which ``auto`` resolves to at
 this size, ``sweep``, ``sparse``, and the fused sparse route) and variant s
 (widths 128/256/512) in ``sweep`` and on the fused route, at 64×128 with a
-context bin per image. Flax weights are converted; BatchNorms and routers
-are randomised so that the check means something (well-separated router
-probabilities, context bins that move them). Tolerances are those of
+context bin per image. Flax weights, made with numpy at the Flax
+parameters' shapes (``numpy_variables``: no init compile; the class prior
+bias −4.6 and the experts at the scale of Flax's ``lecun_normal``, whose
+fan-in counts the expert axis), are converted; BatchNorms and routers are
+randomised so that the check means something (well-separated router
+probabilities, context bins that move them). Torch runs two intra-op
+threads (pytest workers run side by side). Tolerances are those of
 tests/test_torch_yolo.py: logits rtol/atol 1e-4, boxes atol 5e-3 px;
 ``moe_aux_loss`` within 1e-5 and ``expert_load`` within 1e-6. Routing is
 discrete, so before comparing
@@ -27,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import load_flax, randomize_norm
+from _torch_parity import load_flax, numpy_variables
 from multimodal_moe_torch import serving as tserving
 from multimodal_moe_torch.convert import flax_to_state_dict
 from multimodal_moe_torch.models import moe_yolo as tmy
@@ -56,16 +60,36 @@ def _spread_routers(variables, seed):
     return variables
 
 
+@pytest.fixture(autouse=True, scope="module")
+def two_threads():
+    """Two intra-op threads: several pytest workers run side by side."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    yield
+    torch.set_num_threads(threads)
+
+
+def _numpy_weights(variant, seed):
+    m = jmy.MoEYoloDetector(variant=variant, dispatch="dense")
+    v = numpy_variables(m, jnp.zeros((1, H, W, 3)), train=False, seed=seed)
+    p = v["params"]
+    rng = np.random.default_rng(seed + 100)
+    for i in range(LEVELS):
+        p["head"][f"cls{i}_pred"]["bias"][:] = -4.6
+        lvl = p[f"moe_level{i}"]
+        e, d, h = lvl["experts_w1"].shape
+        lvl["experts_w1"] = rng.normal(0, (e * d) ** -0.5, (e, d, h)).astype(np.float32)
+        lvl["experts_w2"] = rng.normal(0, (e * h) ** -0.5, (e, h, d)).astype(np.float32)
+    return v
+
+
 @pytest.fixture(scope="module")
 def flax_weights():
     cache = {}
 
     def get(variant):
         if variant not in cache:
-            m = jmy.MoEYoloDetector(variant=variant, dispatch="dense")
-            v = jax.jit(lambda r: m.init(r, jnp.zeros((1, H, W, 3)), train=False))(
-                jax.random.PRNGKey(0))
-            cache[variant] = _spread_routers(randomize_norm(v, seed=7), seed=8)
+            cache[variant] = _spread_routers(_numpy_weights(variant, seed=7), seed=8)
         return cache[variant]
 
     return get

@@ -9,10 +9,12 @@ out in tests/_torch_yolo_train.py. At this size ``auto`` would resolve to
 The tolerances and their reasons are those of tests/test_torch_yolo_train.py
 (``moe_aux_loss`` is one more metric within 1e-5 relative). Each level's
 top-2 expert choice is JAX's; the port's own choice equals it (checked).
+Torch runs two intra-op threads (pytest workers run side by side).
 """
 
 import numpy as np
 import pytest
+import torch
 
 import _torch_yolo_train as ytrain
 from multimodal_moe_torch.models import moe_yolo as tmy
@@ -23,6 +25,15 @@ from test_torch_yolo_train import (
     assert_own_assignment_matches,
     assert_params_match,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def two_threads():
+    """Two intra-op threads: several pytest workers run side by side."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module", params=["gmm", "sweep"])
