@@ -300,6 +300,35 @@ Phases (each prints one JSON line):
                second step ms and peak memory beside the one-process step's;
                then ``dryrun_multichip(2)`` through NCCL, which runs one rank
                (one card) and prints JAX's line.
+21. remat   -- YOLO ``remat`` on the card: one MoE-YOLO-s B=16 fp32 step (TF32
+               on) of scripts/train_moe.py's trainer on ``dispatch="gmm"`` with
+               ``remat=False``, ``remat=True`` and ``remat=False`` again, the
+               same weights, batch and draws, cuDNN deterministic: the peak
+               memory (``torch.cuda.max_memory_allocated``) and step ms of
+               each; the loss equal, every gradient outside the MoE levels
+               bitwise equal, and each MoE level gradient within
+               ``REMAT_GRAD_TOL`` of its norm, remat against no remat beside
+               the repeat's (the expert biases' gradients add by
+               ``index_add_`` in any order); peak memory lower with remat.
+22. cli     -- the port's CLIs at 704x1248 on a corpus written as the
+               ``data`` phase writes one, with split CSVs of its own (64
+               train frames: an epoch is four steps of B=16; 32 val frames):
+               (a) ``train_moe --resident --epochs 2 --max-epochs-this-run 1``
+               as a child, then again with ``--resume``: the resident store
+               the card's host takes (RGB where the native decoder cannot be
+               built), ``fit_progress.json`` at epoch 1, every run-dir file,
+               ``run_metadata.json`` naming the card, B1 once a validation
+               batch; (b) ``train_rtdetr.main`` in this process, one epoch on
+               the streaming store: B4 and B5 six times a step, B4 six times
+               a validation batch, no B1; (c) ``eval_detector`` as a child on
+               (a)'s run dir: B1 once a batch, ``metrics.json``'s keys the
+               ``evaluate`` phase's plus the CLI's own; (d)
+               ``quantize_yolo.main`` in this process on a YOLO-s run dir
+               written as the ``evaluate`` phase writes one, then
+               ``eval_detector --int8`` as a child reading that npz. Children
+               run their module as ``python -m`` does (``runpy``) and print
+               their kernel counts at exit; each has a timeout; wall seconds
+               per run.
 
 """
 
@@ -4569,6 +4598,320 @@ def phase_multigpu(dev, smi: str) -> dict:
     return rec
 
 
+# --------------------------------------------------------------------------
+# remat: YOLO's trunk recomputed during backward, on the card
+# --------------------------------------------------------------------------
+
+# A MoE level's gradient against its norm. Its expert biases' gradients
+# add by ``index_add_`` (atomics: any order), so they differ between two
+# runs of one step by ~1e-5 with or without remat; every other gradient
+# must be bitwise equal.
+REMAT_GRAD_TOL = 1e-4
+
+
+def remat_step(dev, remat: bool, batch: dict) -> dict:
+    """One train step of scripts/train_moe.py's trainer on ``gmm`` (seed-0
+    weights): its gradients, loss, peak memory above the state and time,
+    then the time of two more steps."""
+    gen = torch.Generator().manual_seed(0)
+    template = MoEYoloDetector(num_classes=1, variant="s", num_experts=MOE_E, k=MOE_K,
+                               capacity_factor=MOE_CF, dispatch="gmm", generator=gen,
+                               remat=remat)
+    trainer = yolo_trainer(dev, YOLO_B, dispatch="gmm", template=template)
+    state = trainer.init_state()
+    grads, apply = {}, state.apply_gradients
+
+    def keep(g):
+        if not grads:
+            grads.update({k: v.detach().clone() for k, v in g.items()})
+        return apply(g)
+
+    state.apply_gradients = keep
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    _, metrics = trainer.train_step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    rec = {"remat": remat, "loss": float(metrics["loss"]), "first_step_ms": start.elapsed_time(end),
+           "state_gib": base / 2**30, "peak_mem_gib": peak / 2**30,
+           "peak_above_state_gib": (peak - base) / 2**30,
+           "step_ms": cuda_ms(lambda: trainer.train_step(state, batch), reps=2, warmup=0)}
+    del trainer, state
+    torch.cuda.empty_cache()
+    return rec, grads
+
+
+def grad_compare(got: dict, ref: dict) -> dict:
+    rel = {k: float((got[k] - g).norm() / g.norm().clamp_min(1e-30)) for k, g in ref.items()}
+    worst = max(rel, key=rel.get)
+    differ = sorted(k for k, g in ref.items() if not torch.equal(got[k], g))
+    return {"bitwise": not differ, "tensors": len(ref), "differ": differ,
+            "max_rel_err": rel[worst], "worst": worst}
+
+
+def phase_remat(dev, smi: str) -> dict:
+    """The training phases' setting (TF32 on, as scripts/train_moe.py runs),
+    with cuDNN deterministic for the comparison. (Deterministic without TF32
+    picks other convolution algorithms: 35.6 GiB and 403 ms without remat,
+    29.6 GiB and 544 ms with, on an NVIDIA H100 80GB HBM3 at 700 W.)"""
+    t0 = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    batch = yolo_train_batch(YOLO_B, seed=15, dev=dev)
+    rec = {"phase": "remat", "model": "moe-yolo-s E=4 k=2 cf=1.25 arch=tpu float32 dispatch=gmm",
+           "config": "scripts/train_moe.py (B=16, SGD-Nesterov, HSV + hflip)", "batch": YOLO_B,
+           "img_hw": [IMG_H, IMG_W], "gpu": smi, "cudnn_deterministic": True,
+           "grad_tol": REMAT_GRAD_TOL, **tf32_state()}
+    try:
+        off, g_off = remat_step(dev, False, batch)
+        on, g_on = remat_step(dev, True, batch)
+        again, g_again = remat_step(dev, False, batch)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    rec.update(no_remat=off, remat=on, no_remat_repeat=again,
+               remat_vs_no_remat=grad_compare(g_on, g_off),
+               repeat_vs_no_remat=grad_compare(g_again, g_off),
+               loss_equal=on["loss"] == off["loss"],
+               peak_saved_gib=off["peak_mem_gib"] - on["peak_mem_gib"])
+    del g_off, g_on, g_again
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    check(np.isfinite(off["loss"]) and rec["loss_equal"],
+          f"remat loss {on['loss']} against {off['loss']}")
+    cmp = rec["remat_vs_no_remat"]
+    check(all(k.startswith("moe_level") for k in cmp["differ"])
+          and cmp["max_rel_err"] <= REMAT_GRAD_TOL, f"remat gradients {cmp}")
+    check(on["peak_mem_gib"] < off["peak_mem_gib"], "remat lowers the step's peak memory")
+    return rec
+
+
+# --------------------------------------------------------------------------
+# cli: the training, evaluation and quantization entry points
+# --------------------------------------------------------------------------
+
+CLI_TRAIN_FRAMES, CLI_VAL_FRAMES = 64, 32
+CLI_TIMEOUT_S = 300
+CLI_RUN_FILES = {"model_config.json", "fit_progress.json", "train_summary.json",
+                 "train_summary.csv", "train_metrics.json", "run_metadata.json",
+                 "run_metadata.csv", "weights"}
+# A child runs the CLI module as ``python -m`` does and prints the kernels'
+# launch counts at exit (each process counts from 0).
+COUNTING_MAIN = """
+import atexit, json, runpy, sys
+from multimodal_moe_torch.ops import deformable_kernel, gmm_kernel, moe_kernels, nms_kernel
+atexit.register(lambda: print("[launches] " + json.dumps({
+    "nms_keep": nms_kernel.nms_keep_launches,
+    "ms_deform_fwd": deformable_kernel.ms_deform_fwd_launches,
+    "ms_deform_bwd": deformable_kernel.ms_deform_bwd_launches,
+    "moe_ffn_fwd": moe_kernels.moe_ffn_fwd_launches,
+    "gmm": gmm_kernel.gmm_launches, "tgmm": gmm_kernel.tgmm_launches}), flush=True))
+sys.argv = sys.argv[1:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+"""
+
+
+def kernel_counts() -> dict:
+    return {"nms_keep": nms_kernel.nms_keep_launches,
+            "ms_deform_fwd": deformable_kernel.ms_deform_fwd_launches,
+            "ms_deform_bwd": deformable_kernel.ms_deform_bwd_launches,
+            "moe_ffn_fwd": moe_kernels.moe_ffn_fwd_launches,
+            "gmm": gmm_kernel.gmm_launches, "tgmm": gmm_kernel.tgmm_launches}
+
+
+def zero_kernel_counts() -> None:
+    nms_kernel.nms_keep_launches = 0
+    deformable_kernel.ms_deform_fwd_launches = deformable_kernel.ms_deform_bwd_launches = 0
+    moe_kernels.moe_ffn_fwd_launches = 0
+    gmm_kernel.gmm_launches = gmm_kernel.tgmm_launches = 0
+
+
+def run_cli_child(module: str, args: list, env: dict) -> dict:
+    """``module`` with ``args`` as a child: its exit code, wall seconds,
+    output tail and kernel counts."""
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-c", COUNTING_MAIN, module, *map(str, args)],
+                              cwd=ROOT, env={**os.environ, **env}, capture_output=True, text=True,
+                              timeout=CLI_TIMEOUT_S)
+        rc, out, err = proc.returncode, proc.stdout, proc.stderr
+    except subprocess.TimeoutExpired as e:
+        rc, out, err = "timeout", e.stdout or "", e.stderr or ""
+        out, err = (x.decode() if isinstance(x, bytes) else x for x in (out, err))
+    counts = [json.loads(line[len("[launches] "):]) for line in out.splitlines()
+              if line.startswith("[launches] ")]
+    rec = {"module": module, "rc": rc, "wall_s": time.perf_counter() - t0,
+           "launches": counts[-1] if counts else None}
+    if rc != 0:
+        rec["tail"] = (out + err)[-3000:]
+    return rec, out + err
+
+
+def check_child(rec: dict, what: str) -> None:
+    check(rec["rc"] == 0 and rec["launches"] is not None,
+          f"{what}: exit {rec['rc']}: {rec.get('tail', '')}")
+
+
+def cli_corpus(root: Path) -> dict:
+    """The ``data`` phase's corpus with split CSVs of this phase: the first
+    ``CLI_TRAIN_FRAMES`` frames train, the ``CLI_VAL_FRAMES`` after the
+    data phase's train split validate."""
+    corpus = write_data_corpus(root / "corpus")
+    splits = root / "splits"
+    splits.mkdir()
+    for name, ids in (("train", range(CLI_TRAIN_FRAMES)),
+                      ("val", range(DATA_FRAMES, DATA_FRAMES + CLI_VAL_FRAMES))):
+        (splits / f"{name}_ids.csv").write_text(
+            "frame_id\n" + "\n".join(f"{i:06d}" for i in ids) + "\n")
+    return {"parquet": corpus["parquet"], "splits": splits}
+
+
+def phase_cli(dev, smi: str, evaluate_keys: set) -> dict:
+    from multimodal_moe_torch.cli import quantize_yolo, train_rtdetr
+
+    t0 = time.perf_counter()
+    val_batches = -(-CLI_VAL_FRAMES // YOLO_B)
+    steps = CLI_TRAIN_FRAMES // YOLO_B
+    native = "libjpeg" not in host_lacks()
+    rec = {"phase": "cli", "gpu": smi, "img_hw": [IMG_H, IMG_W], "batch": YOLO_B,
+           "train_frames": CLI_TRAIN_FRAMES, "val_frames": CLI_VAL_FRAMES,
+           "steps_per_epoch": steps, "val_batches": val_batches}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        data = cli_corpus(root)
+        common = ["--parquet", data["parquet"], "--splits-dir", data["splits"],
+                  "--img-h", IMG_H, "--img-w", IMG_W]   # the CLIs' defaults
+        env = {"EVAL_DIR": str(root / "eval")}
+
+        # (a) train_moe --resident, paused after one epoch, then resumed.
+        run = root / "runs" / "moe"
+        train = [*common, "--project", root / "runs", "--name", "moe", "--resident",
+                 "--epochs", "2", "--max-epochs-this-run", "1"]
+        first, log1 = run_cli_child("multimodal_moe_torch.cli.train_moe", train, env)
+        check_child(first, "train_moe")
+        progress1 = json.loads((run / "fit_progress.json").read_text())
+        second, log2 = run_cli_child("multimodal_moe_torch.cli.train_moe", [*train, "--resume"],
+                                     env)
+        check_child(second, "train_moe --resume")
+        progress = json.loads((run / "fit_progress.json").read_text())
+        stores = re.findall(r"decoded \((\w+)\)", log1 + log2)
+        meta = json.loads((run / "run_metadata.json").read_text())
+        rec["train_moe"] = {
+            "runs": [first, second], "resident_stores": stores,
+            "yuv420_fallback_said": "yuv420 path unavailable" in log1,
+            "progress_epochs": [progress1["epoch"], progress["epoch"]],
+            "epoch_wall_s": progress["train_wall_s_accum"] / len(progress["history"]),
+            "files": sorted(os.listdir(run)), "device_kind": meta["device_kind"],
+            "model_config": json.loads((run / "model_config.json").read_text()),
+            "last_epoch": {k: v for k, v in progress["history"][-1].items()
+                           if k in ("loss", "moe_aux_loss", "val_map50", "val_n_images")}}
+        want_store = "yuv420" if native else "rgb"
+        check(stores == [want_store] * 4, f"resident stores {stores}, expected {want_store}")
+        check(rec["train_moe"]["progress_epochs"] == [0, 1], f"epochs {rec['train_moe']}")
+        check(set(os.listdir(run)) == CLI_RUN_FILES and
+              {"best", "last"} <= set(os.listdir(run / "weights")), f"run dir {os.listdir(run)}")
+        check(meta["device_kind"] == torch.cuda.get_device_name(0), "run_metadata names the card")
+        for r in (first, second):
+            check(r["launches"]["nms_keep"] == val_batches and r["launches"]["gmm"] == 0,
+                  f"train_moe launches {r['launches']}")
+
+        # (b) train_rtdetr in this process: B4 and B5 counted in training and
+        # in validation (torch's defaults: cuDNN TF32 on, matmul off).
+        val_counts = {}
+
+        def counted_val(make):
+            def make_val(*a, **k):
+                val = make(*a, **k)
+
+                def val_fn(state):
+                    before = kernel_counts()
+                    metrics = val(state)
+                    val_counts.update({k: v - before[k] for k, v in kernel_counts().items()})
+                    return metrics
+                return val_fn
+            return make_val
+
+        tf32 = tf32_state()
+        torch.backends.cudnn.allow_tf32 = True
+        zero_kernel_counts()
+        t1 = time.perf_counter()
+        try:
+            with patched(evaluator, "make_ema_val_fn", counted_val):
+                train_rtdetr.main([str(a) for a in (*common, "--project", root / "runs",
+                                                    "--name", "rtdetr", "--epochs", "1")])
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32["cudnn_allow_tf32"]
+        total = kernel_counts()
+        train_counts = {k: v - val_counts[k] for k, v in total.items()}
+        rt_progress = json.loads((root / "runs" / "rtdetr" / "fit_progress.json").read_text())
+        rec["train_rtdetr"] = {
+            "wall_s": time.perf_counter() - t1, "launches": total,
+            "train_launches_per_step": {k: v / steps for k, v in train_counts.items()},
+            "val_launches_per_batch": {k: v / val_batches for k, v in val_counts.items()},
+            "epoch_wall_s": rt_progress["train_wall_s_accum"],
+            "loss": rt_progress["history"][-1].get("loss"),
+            "files": sorted(os.listdir(root / "runs" / "rtdetr"))}
+        torch.cuda.empty_cache()
+        check(train_counts["ms_deform_fwd"] == 6 * steps and train_counts["ms_deform_bwd"] == 6 * steps,
+              f"train_rtdetr: B4/B5 {train_counts}, expected 6 a step")
+        check(val_counts["ms_deform_fwd"] == 6 * val_batches and val_counts["ms_deform_bwd"] == 0
+              and total["nms_keep"] == 0, f"train_rtdetr validation {val_counts}, B1 {total}")
+        check(set(os.listdir(root / "runs" / "rtdetr")) == CLI_RUN_FILES, "rtdetr run dir")
+
+        # (c) eval_detector on (a)'s run.
+        ev, _ = run_cli_child("multimodal_moe_torch.cli.eval_detector",
+                              [*common, "--backend", "moe", "--weights", run,
+                               "--run-name", "moe_cli"], env)
+        check_child(ev, "eval_detector")
+        metrics = json.loads((root / "eval" / "moe" / "moe_cli" / "metrics.json").read_text())
+        own = {"params_total", "flops_g", "fps_inference_only", "speed_total_ms_per_img",
+               "fps_end_to_end", "curves_results"}
+        rec["eval_detector"] = {**ev, "n_images": metrics["n_images"],
+                                "params_total": metrics["params_total"],
+                                "flops_g": metrics["flops_g"],
+                                "speed_inference_ms_per_img": metrics["speed_inference_ms_per_img"],
+                                "extra_keys": sorted(set(metrics) - evaluate_keys)}
+        check(ev["launches"]["nms_keep"] == val_batches and metrics["n_images"] == CLI_VAL_FRAMES,
+              f"eval_detector: B1 {ev['launches']}, {metrics['n_images']} images")
+        check(set(metrics) - own == evaluate_keys,
+              f"eval keys {sorted(set(metrics) ^ (evaluate_keys | own))}")
+
+        # (d) quantize_yolo in this process on a YOLO-s run dir, then
+        # eval_detector --int8 reading its npz.
+        yolo_run = write_run_dir(root / "qruns", {"family": "yolo", "variant": "s"})
+        t1 = time.perf_counter()
+        quantize_yolo.main([str(a) for a in (*common, "--weights", yolo_run)])
+        torch.cuda.synchronize()
+        npz = yolo_run / "weights" / "int8_quant_best.npz"
+        rec["quantize_yolo"] = {"wall_s": time.perf_counter() - t1, "npz_bytes": npz.stat().st_size,
+                                "leaves": len(np.load(npz).files)}
+        torch.cuda.empty_cache()
+        ev8, log8 = run_cli_child("multimodal_moe_torch.cli.eval_detector",
+                                  [*common, "--backend", "yolo", "--weights", yolo_run, "--int8",
+                                   "--run-name", "yolo_int8"], env)
+        check_child(ev8, "eval_detector --int8")
+        m8 = json.loads((root / "eval" / "yolo" / "yolo_int8" / "metrics.json").read_text())
+        rec["eval_int8"] = {**ev8, "reused_npz": f"Loaded int8 quant tree <- {npz}" in log8,
+                            "quantization": m8.get("quantization"), "n_images": m8["n_images"],
+                            "speed_inference_ms_per_img": m8["speed_inference_ms_per_img"]}
+        check(rec["eval_int8"]["reused_npz"] and m8.get("quantization") == "int8_w8a8_ptq",
+              "eval_detector --int8 read quantize_yolo's npz")
+        check(ev8["launches"]["nms_keep"] == val_batches, f"int8 eval B1 {ev8['launches']}")
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    return rec
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--multigpu-rank":
         return multigpu_rank(Path(sys.argv[2]))
@@ -4656,9 +4999,23 @@ def main() -> int:
     gmm_cases = phase_gmm_kernel(dev)
     phase_moe_yolo_train_fp32(dev)
     moe_train = phase_moe_yolo_train(dev, smi)
+    phase_remat(dev, smi)
     phase_yolo_train(dev, smi)
     data = phase_data(dev, smi, moe_train["dispatch"]["gmm"])
     multigpu = phase_multigpu(dev, smi)
+    cli = phase_cli(dev, smi, set(evaluation["models"]["moe"]["metrics"]))
+    nms_entry["cli_launches"] = {
+        "train_moe_validation": [r["launches"]["nms_keep"] for r in cli["train_moe"]["runs"]],
+        "train_rtdetr": cli["train_rtdetr"]["launches"]["nms_keep"],
+        "eval_detector": cli["eval_detector"]["launches"]["nms_keep"],
+        "eval_detector_int8": cli["eval_int8"]["launches"]["nms_keep"]}
+    deform_entry["cli_launches"] = {
+        "train_rtdetr": cli["train_rtdetr"]["launches"]["ms_deform_fwd"],
+        "per_train_step": cli["train_rtdetr"]["train_launches_per_step"]["ms_deform_fwd"],
+        "per_val_batch": cli["train_rtdetr"]["val_launches_per_batch"]["ms_deform_fwd"]}
+    bwd_entry["cli_launches"] = {
+        "train_rtdetr": cli["train_rtdetr"]["launches"]["ms_deform_bwd"],
+        "per_train_step": cli["train_rtdetr"]["train_launches_per_step"]["ms_deform_bwd"]}
     counts = moe_train["dispatch"]["gmm"]["launches_per_step"]
     gmm_entries = gmm_kernel_entries(gmm_cases, {
         "gmm": counts["gmm_forward"], "gmm_transposed": counts["gmm"] - counts["gmm_forward"],

@@ -13,10 +13,16 @@ import torch
 from .._device import resolve_device
 
 
+def platform_device() -> "str | None":
+    """``"cpu"`` when ``MMOE_PLATFORM=cpu``, else None: the card (on a
+    multi-process launch, this rank's card)."""
+    return "cpu" if os.environ.get("MMOE_PLATFORM") == "cpu" else None
+
+
 def cli_device() -> torch.device:
     """The CPU when ``MMOE_PLATFORM=cpu``, else the card (which raises
     where there is none: the port never drops to the CPU on its own)."""
-    return resolve_device("cpu" if os.environ.get("MMOE_PLATFORM") == "cpu" else None)
+    return resolve_device(platform_device())
 
 
 def load_resized(path: Path, img_h: int, img_w: int) -> "tuple[np.ndarray, tuple[int, int]]":

@@ -67,28 +67,39 @@ def _load_pixels(dataset: ZODMoEVisionDataset, local: np.ndarray, store: str,
                  num_workers: int) -> "Dict[str, np.ndarray]":
     """The pixels of the samples ``local``: ``y``/``cb``/``cr`` planes from
     the native decoder (``store="yuv420"``), or ``image`` RGB through the
-    dataset's own decode (``store="rgb"``). ``yuv420`` raises ``ValueError``
-    where the decoder or the corpus cannot give planes."""
+    dataset's own decode (``store="rgb"``). Where ``yuv420`` cannot give
+    planes (no native decoder, a JPEG that is not 4:2:0, a decode error) it
+    says so on stderr and stores RGB, as JAX's loader does: the batches are
+    the same either way, only the resident layout differs."""
     cfg = dataset.cfg
-    if store == "yuv420":
-        from .native_decode import build_error, decode_jpeg_bytes_yuv420, \
-            decode_jpeg_files_yuv420, native_available
-
-        paths = [dataset.image_path(i) for i in local]
-        if not native_available():
-            raise ValueError(f"store='yuv420' not usable: native decoder unavailable "
-                             f"({build_error})")
-        with open(paths[0], "rb") as f:
-            if decode_jpeg_bytes_yuv420(f.read(), cfg.img_h, cfg.img_w) is None:
-                raise ValueError("store='yuv420' not usable: first JPEG is not 4:2:0 subsampled")
-        y, cb, cr = decode_jpeg_files_yuv420(paths, cfg.img_h, cfg.img_w, n_threads=num_workers)
-        return {"y": y, "cb": cb, "cr": cr}
-    if store != "rgb":
+    if store not in ("yuv420", "rgb"):
         raise ValueError(f"unknown store {store!r}")
+    if store == "yuv420":
+        try:
+            return _load_planes(dataset, local, num_workers)
+        except Exception as e:  # noqa: BLE001 - any decoder failure stores RGB
+            print(f"[resident] yuv420 path unavailable ({e}); storing RGB", file=sys.stderr)
     rgb = np.empty((len(local), cfg.img_h, cfg.img_w, 3), np.uint8)
     for j, i in enumerate(local):
         rgb[j] = dataset.load(int(i))["image"]
     return {"image": rgb}
+
+
+def _load_planes(dataset: ZODMoEVisionDataset, local: np.ndarray,
+                 num_workers: int) -> "Dict[str, np.ndarray]":
+    """The native decoder's 4:2:0 planes of ``local``; raises where it
+    cannot give them."""
+    from . import native_decode as nd
+
+    cfg = dataset.cfg
+    paths = [dataset.image_path(i) for i in local]
+    if not nd.native_available():
+        raise RuntimeError(f"native decoder unavailable ({nd.build_error})")
+    with open(paths[0], "rb") as f:
+        if nd.decode_jpeg_bytes_yuv420(f.read(), cfg.img_h, cfg.img_w) is None:
+            raise RuntimeError("first JPEG is not 4:2:0 subsampled")
+    y, cb, cr = nd.decode_jpeg_files_yuv420(paths, cfg.img_h, cfg.img_w, n_threads=num_workers)
+    return {"y": y, "cb": cb, "cr": cr}
 
 
 def _upload(arrays: "Dict[str, np.ndarray]", dev: torch.device) -> "Dict[str, torch.Tensor]":
@@ -126,9 +137,10 @@ class ResidentDetectionLoader:
     The build is paid once (host decode of every JPEG, one upload);
     iteration yields batch dicts gathered on the device, with ``batch_valid``
     as a host array. ``store="yuv420"`` keeps 4:2:0 planes on the device
-    (half the bytes of RGB; requires the native decoder and images already at
-    the target size, and raises ``ValueError`` without them) and converts to
-    RGB per batch; ``store="rgb"`` keeps uint8 RGB. ``device=None`` means
+    (half the bytes of RGB; requires images already at the target size, and
+    the native decoder: without it the loader stores RGB, as JAX's does, and
+    ``store`` says ``"rgb"``) and converts to RGB per batch; ``store="rgb"``
+    keeps uint8 RGB. ``device=None`` means
     the card (and raises without one); the tests pass ``device="cpu"``.
 
     The final partial batch (``drop_last=False``) is padded with copies of
@@ -189,7 +201,8 @@ class ResidentDetectionLoader:
         pixels = _load_pixels(dataset, local, store, num_workers)
         decode_s = time.perf_counter() - t0
         print(f"[resident] {len(local)} samples: targets {targets_s:.1f}s, decoded "
-              f"({store}) in {decode_s:.1f}s", file=sys.stderr, flush=True)
+              f"({'yuv420' if 'y' in pixels else 'rgb'}) in {decode_s:.1f}s",
+              file=sys.stderr, flush=True)
         self._init_device({**targets, **pixels}, batch_size, shuffle=shuffle, seed=seed,
                           drop_last=drop_last, dev=dev)
         self.dataset = dataset

@@ -15,7 +15,7 @@ from __future__ import annotations
 import json
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Dict, Iterable, Tuple
+from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
@@ -96,14 +96,18 @@ def load_detector(
     img_w: int = 1248,
     use_ema: bool = True,
     device=None,
+    default_family: str = "yolo",
 ) -> LoadedDetector:
     """Run dir → restored model on ``device`` (the card unless
     ``device="cpu"``). EMA parameters by default (the protocol's eval
-    channel), with the checkpoint's running statistics."""
+    channel), with the checkpoint's running statistics. ``default_family``
+    is the family of a run whose ``model_config.json`` names none (the eval
+    CLI's ``--backend``)."""
     from .train.detection import DetTrainConfig, DetectionTrainer
     from .train.state import CheckpointManager
 
     ckpt_path, model_cfg = resolve_checkpoint(Path(weights).resolve(), checkpoint)
+    model_cfg = {"family": default_family, **model_cfg}
     family, model = build_detector(model_cfg)
     trainer = DetectionTrainer(
         model,
@@ -133,6 +137,7 @@ def quantize_loaded(
     *,
     fp_box: bool = False,
     mode: str = "absmax",
+    npz_names: "Optional[Sequence[str]]" = None,
 ) -> LoadedDetector:
     """int8 PTQ serving twin of a loaded detector, on its device.
 
@@ -141,8 +146,9 @@ def quantize_loaded(
     it, in JAX's or the port's writing); else calibrates ``loaded.model``
     on ``calib_batches`` (normalized float NHWC image batches, the
     ``quant.calibrate`` contract) and writes ``int8_quant_<ckpt>.npz``, as
-    the eval CLI does. The npz is always the full-int8 model's tree (a
-    superset), shared by both serving modes. MoE-YOLO, RT-DETR and the
+    the eval CLI does. ``npz_names`` replaces the names reused (``()``:
+    calibrate whatever is there). The npz is always the full-int8 model's
+    tree (a superset), shared by both serving modes. MoE-YOLO, RT-DETR and the
     ``fp_box`` mode quantize part of the net: their fp islands keep the
     loaded fp weights."""
     from . import quant as qz
@@ -150,7 +156,9 @@ def quantize_loaded(
     ckpt_dir, ckpt_name = loaded.ckpt_path.parent, loaded.ckpt_path.name
     _, model_q = build_detector(loaded.model_cfg, int8=True)
     qvars = None
-    for name in ("int8_quant.npz", f"int8_quant_{ckpt_name}.npz"):
+    if npz_names is None:
+        npz_names = ("int8_quant.npz", f"int8_quant_{ckpt_name}.npz")
+    for name in npz_names:
         if (ckpt_dir / name).exists():
             qvars = qz.load_quant_npz(ckpt_dir / name)
             break

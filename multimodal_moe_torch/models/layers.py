@@ -19,6 +19,7 @@ The fp blocks record the calibration statistics JAX sows
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 from typing import Dict
@@ -26,6 +27,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.int8_conv import int8_conv2d
 from ..parallel.mesh import active_mesh
@@ -166,6 +168,36 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[None, :, None, None]) * mul[None, :, None, None]
         return (y + self.bias[None, :, None, None]).to(x.dtype)
+
+
+@contextlib.contextmanager
+def stats_frozen(module: nn.Module):
+    """Normalise as in train mode but leave the running statistics alone."""
+    norms = [m for m in module.modules() if isinstance(m, FlaxBatchNorm2d)]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            del m.update_stats
+
+
+def remat_active(module: nn.Module) -> bool:
+    """Whether ``module`` (with a ``remat`` flag) recomputes its blocks now:
+    only in a train-mode forward that builds a graph."""
+    return module.remat and module.training and torch.is_grad_enabled()
+
+
+def run_block(module: nn.Module, x, recompute: bool):
+    """``module(x)``; with ``recompute``, its activations are not kept but
+    computed again during backward (``torch.utils.checkpoint``, the JAX
+    models' ``nn.remat``), the running statistics frozen on the recompute so
+    that they move once."""
+    if not recompute:
+        return module(x)
+    return checkpoint(module, x, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), stats_frozen(module)))
 
 
 def register_conv_quant(module: nn.Module, cin: int, features: int, k: int,

@@ -34,6 +34,8 @@ class MoEYoloDetector(YoloDetector):
     ``expert_load`` ``(3, E)``. The routers stay float32 in a bf16 model.
     Under an active mesh each level's ``moe_aux_loss`` and ``expert_load``
     are the global batch's (``models/moe.py``), and so are their means.
+    ``remat`` recomputes the trunk's stages as :class:`.yolo.YoloDetector`'s;
+    the MoE levels and the head are not recomputed, as in JAX.
     """
 
     context_aware = True  # serving.make_serving_step passes context_ids
@@ -42,9 +44,9 @@ class MoEYoloDetector(YoloDetector):
                  k: int = 2, capacity_factor: float = 1.25, dispatch: str = "auto",
                  dtype: torch.dtype = torch.float32, arch: str = "tpu",
                  generator: "torch.Generator | None" = None, int8: bool = False,
-                 int8_fp_box: bool = False):
+                 int8_fp_box: bool = False, remat: bool = False):
         super().__init__(num_classes, variant, dtype, arch, generator, int8=int8,
-                         int8_fp_box=int8_fp_box)
+                         int8_fp_box=int8_fp_box, remat=remat)
         for i, c in enumerate(scaled_channels(variant)[2:5]):
             moe = MoEFFN(c, num_experts, k=k, capacity_factor=capacity_factor, dtype=dtype,
                          dispatch=dispatch, generator=generator, int8=int8)

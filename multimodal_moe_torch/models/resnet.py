@@ -15,16 +15,15 @@ unchanged scale) and the stem's max-pool on the codes.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..quant import QT, max_pool_codes, record_absmax, register_quant
-from .layers import FlaxBatchNorm2d, conv_quant, register_conv_quant, requant_add
+from .layers import (FlaxBatchNorm2d, conv_quant, register_conv_quant, remat_active,
+                     requant_add, run_block)
 
 BN_EPS = 1e-5
 
@@ -133,31 +132,12 @@ class ResNet(nn.Module):
         else:
             x = F.max_pool2d(x, 3, 2, 1)
         feats = []
-        recompute = self.remat and self.training and torch.is_grad_enabled()
+        recompute = remat_active(self)
         for names in self._stages:
             for name in names:
-                block = getattr(self, name)
-                if recompute:
-                    x = checkpoint(block, x, use_reentrant=False,
-                                   context_fn=lambda b=block: (contextlib.nullcontext(),
-                                                               _stats_frozen(b)))
-                else:
-                    x = block(x)
+                x = run_block(getattr(self, name), x, recompute)
             feats.append(x)
         return feats
-
-
-@contextlib.contextmanager
-def _stats_frozen(module: nn.Module):
-    """Normalise as in train mode but leave the running statistics alone."""
-    norms = [m for m in module.modules() if isinstance(m, FlaxBatchNorm2d)]
-    for m in norms:
-        m.update_stats = False
-    try:
-        yield
-    finally:
-        for m in norms:
-            del m.update_stats
 
 
 def resnet50(**kw) -> ResNet:

@@ -32,6 +32,8 @@ from .layers import (
     concat,
     lecun_normal_,
     register_conv_quant,
+    remat_active,
+    run_block,
     upsample2x,
 )
 
@@ -64,19 +66,23 @@ def scaled_depths(variant: str) -> "list[int]":
     return [max(1, round(n * d)) for n in BASE_DEPTHS]
 
 
-def _run(module: nn.Module, names: "list[str]", x):
+def _run(module: nn.Module, names: "list[str]", x, recompute: bool = False):
     for name in names:
-        x = getattr(module, name)(x)
+        x = run_block(getattr(module, name), x, recompute)
     return x
 
 
 class Backbone(nn.Module):
     """Emits the stride 8/16/32 maps (P3, P4, P5). ``arch="tpu"``: space-to-
     depth stem and PlainStages at /4 and /8; ``arch="csp"``: two strided
-    convs and CSP at every level."""
+    convs and CSP at every level. ``remat`` recomputes each stage during
+    backward (:func:`.layers.run_block`); the names stay the same, so
+    checkpoints load either way."""
 
-    def __init__(self, variant: str = "s", arch: str = "tpu", int8: bool = False):
+    def __init__(self, variant: str = "s", arch: str = "tpu", int8: bool = False,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         ch = scaled_channels(variant)
         depths = scaled_depths(variant)
         nm = AutoNamer()
@@ -110,17 +116,21 @@ class Backbone(nn.Module):
         ]
 
     def forward(self, x):
-        p3 = _run(self, self._to_p3, x)
-        p4 = _run(self, self._to_p4, p3)
-        p5 = _run(self, self._to_p5, p4)
+        r = remat_active(self)
+        p3 = _run(self, self._to_p3, x, r)
+        p4 = _run(self, self._to_p4, p3, r)
+        p5 = _run(self, self._to_p5, p4, r)
         return [p3, p4, p5]
 
 
 class PANNeck(nn.Module):
-    """Top-down + bottom-up path aggregation over the three levels."""
+    """Top-down + bottom-up path aggregation over the three levels;
+    ``remat`` as :class:`Backbone`'s."""
 
-    def __init__(self, variant: str = "s", arch: str = "tpu", int8: bool = False):
+    def __init__(self, variant: str = "s", arch: str = "tpu", int8: bool = False,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         ch = scaled_channels(variant)
         depth = scaled_depths(variant)[3]
         nm = AutoNamer()
@@ -138,7 +148,8 @@ class PANNeck(nn.Module):
 
     def forward(self, feats):
         p3, p4, p5 = feats
-        m = lambda name, x: getattr(self, name)(x)  # noqa: E731
+        r = remat_active(self)
+        m = lambda name, x: run_block(getattr(self, name), x, r)  # noqa: E731
         t4 = m(self._t4, concat([upsample2x(p5), p4]))                   # top-down
         n3 = m(self._n3, concat([upsample2x(t4), p3]))
         n4 = m(self._n4, concat([m(self._down3, n3), t4]))               # bottom-up
@@ -263,6 +274,10 @@ class YoloDetector(nn.Module):
     ones until ``quant.load_serving`` fills them) replace the trunk's and the
     head's convs; ``int8_fp_box`` keeps the box branch fp. The int8 model is
     float32 outside its int8 convs.
+
+    ``remat`` recomputes the backbone's and the neck's stages during
+    backward in training (less memory for more forward work); outputs,
+    gradients and state-dict names are those of ``remat=False``.
     """
 
     # Every batch reduction of its training step (BatchNorm, yolo_loss, the
@@ -272,15 +287,15 @@ class YoloDetector(nn.Module):
     def __init__(self, num_classes: int = 1, variant: str = "s",
                  dtype: torch.dtype = torch.float32, arch: str = "tpu",
                  generator: "torch.Generator | None" = None, int8: bool = False,
-                 int8_fp_box: bool = False):
+                 int8_fp_box: bool = False, remat: bool = False):
         super().__init__()
         if int8 and dtype != torch.float32:
             raise ValueError("the int8 model keeps dtype float32 (its scales are float32)")
         self.num_classes = num_classes
         self.dtype = dtype
         self.int8 = int8
-        self.backbone = Backbone(variant, arch, int8=int8)
-        self.neck = PANNeck(variant, arch, int8=int8)
+        self.backbone = Backbone(variant, arch, int8=int8, remat=remat)
+        self.neck = PANNeck(variant, arch, int8=int8, remat=remat)
         self.head = DetectHead(num_classes, variant, int8=int8, fp_box=int8 and int8_fp_box)
         self._init_weights(generator)
         self.to(dtype)
@@ -352,3 +367,9 @@ class YoloDetector(nn.Module):
             "anchor_points": anchor_points,                    # (A, 2)
             "anchor_strides": anchor_strides,                  # (A, 1)
         }
+
+
+def count_params(model: nn.Module) -> int:
+    """The number of trainable parameter elements (JAX's ``count_params`` of
+    the parameter tree)."""
+    return sum(p.numel() for p in model.parameters() if p.requires_grad)

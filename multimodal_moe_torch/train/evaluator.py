@@ -148,7 +148,8 @@ def evaluate_detector(
     and, for context-aware models, ``solar_bin``. Batches go to ``device``
     (the card unless ``device="cpu"``); a YUV batch becomes uint8 RGB there
     (``preprocess.yuv420_to_rgb_u8``). Rows whose ``batch_valid`` is false
-    are not scored.
+    are not scored. Tensors already on the card (the resident loader's
+    batches) are used where they lie; the ground truth is read back.
     """
     device = resolve_device(device)
     det_boxes, det_scores, gt_boxes_all = [], [], []
@@ -158,6 +159,9 @@ def evaluate_detector(
 
     def on_device(x):
         return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x).to(device)
+
+    def on_host(x):   # the resident loader's batches lie on the card
+        return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
     for batch in loader:
         if "y" in batch:  # store="yuv420" loader: finish the decode on the card
@@ -199,9 +203,9 @@ def evaluate_detector(
         nms_boxes = nms.boxes.cpu().numpy()
         nms_scores = nms.scores.cpu().numpy()
         nms_valid = nms.valid.cpu().numpy()
-        valid_rows = np.asarray(batch.get("batch_valid", np.ones(len(nms_boxes), bool)))
-        gtb = np.asarray(batch["gt_boxes"]) if gt_from_batch else None
-        gtm = np.asarray(batch["gt_mask"]) if gt_from_batch else None
+        valid_rows = on_host(batch.get("batch_valid", np.ones(len(nms_boxes), bool)))
+        gtb = on_host(batch["gt_boxes"]) if gt_from_batch else None
+        gtm = on_host(batch["gt_mask"]) if gt_from_batch else None
 
         for i in range(nms_boxes.shape[0]):
             if not valid_rows[i]:
@@ -234,13 +238,15 @@ def make_ema_val_fn(
     make_loader: Callable[[], Iterable],
     *,
     compute_curves: bool = False,
+    use_nms: bool = True,
 ) -> "Callable[[Any], Dict[str, Any]]":
     """``val_fn`` for ``DetectionTrainer.fit``: evaluates a
     ``train.state.TrainState``'s EMA parameters with its model's running
     statistics over a fresh ``make_loader()``, on the state's device, as the
     JAX trainers' scripts do every epoch. ``model`` is the detector the
     state trains or its template (the same architecture); one inference
-    step serves every epoch."""
+    step serves every epoch. ``use_nms=False`` takes the DETR family's
+    top-k tail, as JAX's ``train_rtdetr`` validates."""
     infer_v = make_inference_step(model)
 
     def val_fn(state) -> "Dict[str, Any]":
@@ -249,6 +255,7 @@ def make_ema_val_fn(
             make_loader(),
             lambda images, context_ids=None: infer_v(params, images, context_ids),
             compute_curves=compute_curves,
+            use_nms=use_nms,
             device=next(iter(params.values())).device,
         )
 

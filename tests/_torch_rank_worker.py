@@ -20,6 +20,10 @@ intra-op threads a rank. Cases:
   over ``train_in.pt``'s global batches; RT-DETR on the mesh raising
   ``NotImplementedError``; a 2-rank ``fit`` with an early pause and a
   resume, checkpoints in the one-process layout.
+* ``remat`` -- one ``DetectionTrainer`` step of YOLO-n on a 2 × 1 mesh over
+  ``remat_in.pt``'s global batch, with ``remat=True`` and with
+  ``remat=False``: the recompute runs BatchNorm's all-reduce again during
+  backward, in the same order on every rank.
 """
 
 from __future__ import annotations
@@ -243,7 +247,27 @@ def case_train(work: Path, rank: int, world: int) -> dict:
     return out
 
 
-CASES = {"cluster": case_cluster, "moe": case_moe, "train": case_train}
+def case_remat(work: Path, rank: int, world: int) -> dict:
+    from multimodal_moe_torch.models.yolo import YoloDetector
+    from multimodal_moe_torch.train.detection import DetectionTrainer, DetTrainConfig
+    from multimodal_moe_torch.train.state import one_process_state_dict
+
+    spec = torch.load(work / "remat_in.pt", weights_only=False)
+    mesh = pm.create_mesh(world, 1)
+    out = {}
+    for remat in (False, True):
+        template = YoloDetector(num_classes=1, variant="n", remat=remat,
+                                generator=torch.Generator().manual_seed(0))
+        trainer = DetectionTrainer(template, DetTrainConfig(**spec["cfg"]), steps_per_epoch=1,
+                                   mesh=mesh, device=torch.device("cpu"))
+        state = trainer.init_state()
+        state, m = trainer.train_step(state, trainer._to_device(spec["batch"]))
+        out[remat] = {"state": one_process_state_dict(state, mesh),
+                      "metrics": {k: float(v) for k, v in m.items()}}
+    return out
+
+
+CASES = {"cluster": case_cluster, "moe": case_moe, "train": case_train, "remat": case_remat}
 
 
 def main() -> None:

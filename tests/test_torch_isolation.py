@@ -24,7 +24,11 @@ REQUIRED = ("multimodal_moe_torch.losses.hungarian", "multimodal_moe_torch.ops.a
             "multimodal_moe_torch.data.index", "multimodal_moe_torch.data.exports",
             "multimodal_moe_torch.data.native_decode", "multimodal_moe_torch.data.pipeline",
             "multimodal_moe_torch.data.resident", "multimodal_moe_torch.server",
-            "multimodal_moe_torch.cli.serve_detector", "multimodal_moe_torch.cli.predict_detector")
+            "multimodal_moe_torch.cli.serve_detector", "multimodal_moe_torch.cli.predict_detector",
+            "multimodal_moe_torch.paths", "multimodal_moe_torch.data.yolo_layout",
+            "multimodal_moe_torch.cli.train_yolo", "multimodal_moe_torch.cli.train_moe",
+            "multimodal_moe_torch.cli.train_rtdetr", "multimodal_moe_torch.cli.eval_detector",
+            "multimodal_moe_torch.cli.quantize_yolo")
 
 _CHILD = """
 import importlib, pkgutil, sys

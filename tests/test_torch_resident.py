@@ -142,15 +142,28 @@ def test_resident_requires_presized(corpus):
         jr.ResidentDetectionLoader(jds, 4)
 
 
-def test_resident_yuv420_refuses_without_the_decoder(corpus, monkeypatch):
-    """Unlike JAX's, which stores RGB then, the port's ``yuv420`` store
-    raises where the decoder cannot give planes."""
+def test_resident_yuv420_stores_rgb_without_the_decoder(corpus, monkeypatch, capsys):
+    """Where the native decoder is missing (the card's host has no
+    ``jpeglib.h``), the ``yuv420`` store keeps RGB, as JAX's loader does:
+    ``store`` says ``"rgb"`` and the batches are bitwise JAX's loader's
+    under the same patch, over two shuffled epochs."""
     from multimodal_moe_torch.data import native_decode
+    from multimodal_moe_tpu.data import native_decode as jax_native_decode
 
     monkeypatch.setattr(native_decode, "native_available", lambda: False)
-    tds, _ = _datasets(corpus)
-    with pytest.raises(ValueError, match="not usable"):
-        tr.ResidentDetectionLoader(tds, 4, device="cpu")
+    monkeypatch.setattr(jax_native_decode, "native_available", lambda: False)
+    tds, jds = _datasets(corpus)
+    kw = dict(shuffle=True, seed=3, drop_last=False)
+    port = tr.ResidentDetectionLoader(tds, 4, store="yuv420", device="cpu", **kw)
+    assert "yuv420 path unavailable" in capsys.readouterr().err
+    ref = jr.ResidentDetectionLoader(jds, 4, store="yuv420", **kw)
+    assert port.store == "rgb" and ref.store == "rgb"
+    for ours, theirs in zip(_epochs(port), _epochs(ref)):
+        assert len(ours) == len(theirs)
+        for o, t in zip(ours, theirs):
+            assert_batches_equal(o, t)
+    with pytest.raises(ValueError, match="unknown store"):
+        tr.ResidentDetectionLoader(tds, 4, store="bgr", device="cpu")
 
 
 def test_resident_needs_a_device_or_cpu(corpus, monkeypatch):
