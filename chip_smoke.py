@@ -297,9 +297,35 @@ Phases (each prints one JSON line):
                token may fall either way), which stay under 1% of the
                level's tokens; B3 6 + 6 + 6 launches a rank on ``gmm`` (``multigpu_launches`` in the
                ``kernels`` line), none on the others; each rank's first and
-               second step ms and peak memory beside the one-process step's;
-               then ``dryrun_multichip(2)`` through NCCL, which runs one rank
-               (one card) and prints JAX's line.
+               second step ms and peak memory beside the one-process step's.
+               RT-DETR r50vd (``rtdetr_2x1``: scripts/train_rtdetr.py's
+               trainer, remat, AdamW 1e-4, 96 ground-truth slots) on 2 x 1
+               with the same global B=16: the first step on the one-process
+               step's query selection and matching (each rank its rows; at
+               random init float32 noise moves the decoder's costs, so the
+               ranks' own matching may differ only where the one-process
+               costs prefer their choice by no more than the two steps'
+               costs differ on the two assignments), the loss and each
+               part, the gradient (summed over the ranks, before the clip)
+               in norm and in scale (its projection on the one-process
+               gradient), and Adam's mu, within 3x what the one-process step
+               moves by when repeated or run on the batch with its halves
+               swapped (floors 1e-4 of the loss, 1e-2 of the gradient, 1e-3
+               of mu's norm), the scale of every top-level module's gradient
+               whose direction that noise moves by at most 10% within 0.125,
+               two planted faults (detr_loss summing only its counts over
+               the ranks; rank 1's loss halved) failing those checks, the
+               parameters (lr 0) by the rule above, the running statistics
+               within 1e-5, the EMA within 1e-3
+               (``MG_RT_*``), B4 and B5 six times a rank. A
+               one-epoch ``fit`` of MoE-YOLO-s on 1 x 2 (``gmm``, two global
+               steps of 16, each rank its strided shard) with
+               ``make_ema_val_fn`` over 16 frames in two batches: both ranks'
+               history (and ``fit_progress.json``) equal, B1 twice on rank 0
+               and never on rank 1 (rank 0 evaluates the gathered EMA and
+               broadcasts the metrics). Then ``dryrun_multichip(2)``
+               through NCCL, which runs one rank (one card) and prints JAX's
+               line.
 21. remat   -- YOLO ``remat`` on the card: one MoE-YOLO-s B=16 fp32 step (TF32
                on) of scripts/train_moe.py's trainer on ``dispatch="gmm"`` with
                ``remat=False``, ``remat=True`` and ``remat=False`` again, the
@@ -325,7 +351,13 @@ Phases (each prints one JSON line):
                ``evaluate`` phase's plus the CLI's own; (d)
                ``quantize_yolo.main`` in this process on a YOLO-s run dir
                written as the ``evaluate`` phase writes one, then
-               ``eval_detector --int8`` as a child reading that npz. Children
+               ``eval_detector --int8`` as a child reading that npz; (e)
+               ``train_vision_baseline`` as a child on the train split
+               (ResNet-50 at 256x256, B=32, two epochs): finite loss lines,
+               the wall time, the plot written or skipped; (f)
+               ``analyze_moe_routing`` as a child on (a)'s run dir over the
+               val split (``--per-context 5``: every solar bin): both files
+               written, a bin each, every load row summing to k=2. Children
                run their module as ``python -m`` does (``runpy``) and print
                their kernel counts at exit; each has a timeout; wall seconds
                per run.
@@ -1595,22 +1627,29 @@ def server_children(children: dict, loaded) -> dict:
 def nms_launch_split(fn, reps: int = 20) -> dict:
     """Device ms of each of the keep mask's two launches (the IoU bitmask,
     the walk; above K = 1024 ``mask_tiles_kernel`` and
-    ``walk_global_kernel``) a call of ``fn``, by ``torch.profiler``."""
+    ``walk_global_kernel``) a call of ``fn``, by ``torch.profiler``, and
+    ``profiler_windows``, the windows profiled. The profiler has been seen
+    to record no kernel at all in a window on an H100, for a cause not
+    found; another window (up to three) is then profiled, and the count
+    says how often that happens."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    split = {"mask_kernel": 0.0, "walk_kernel": 0.0}
     pattern = {"mask_kernel": re.compile(r"mask_(tiles_)?kernel"),
                "walk_kernel": re.compile(r"walk_(global_)?kernel")}
-    for key, ms, _ in device_rows(prof):
-        for name in split:
-            if pattern[name].search(key):
-                split[name] += ms / reps
+    for windows in range(1, 4):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        split = {"mask_kernel": 0.0, "walk_kernel": 0.0}
+        for key, ms, _ in device_rows(prof):
+            for name in split:
+                if pattern[name].search(key):
+                    split[name] += ms / reps
+        if all(ms > 0 for ms in split.values()):
+            break
     check(all(ms > 0 for ms in split.values()), "the profiler saw both NMS launches")
-    return split
+    return {**split, "profiler_windows": windows}
 
 
 def nms_tail_split(boxes, scores, reps: int) -> dict:
@@ -2211,7 +2250,7 @@ def phase_deform_bwd(dev) -> dict:
     return report
 
 
-def rtdetr_trainer(dev, b: int, template=None, **cfg_kw) -> DetectionTrainer:
+def rtdetr_trainer(dev, b: int, template=None, mesh=None, **cfg_kw) -> DetectionTrainer:
     """scripts/train_rtdetr.py's model and trainer: r50vd, hidden 256, 300
     queries, 6 decoder layers, remat, AdamW lr 1e-4 flat after a 1-epoch
     warmup, weight decay 1e-4; random weights from seed 0."""
@@ -2224,7 +2263,7 @@ def rtdetr_trainer(dev, b: int, template=None, **cfg_kw) -> DetectionTrainer:
                                    warmup_epochs=1.0), **cfg_kw})
     return DetectionTrainer(template, cfg, loss_fn=functools.partial(rtdetr_loss,
                                                                      img_hw=(IMG_H, IMG_W)),
-                            steps_per_epoch=RT_STEPS_PER_EPOCH, device=dev)
+                            steps_per_epoch=RT_STEPS_PER_EPOCH, device=dev, mesh=mesh)
 
 
 def rt_train_batch(b: int, seed: int, dev) -> dict:
@@ -4367,6 +4406,47 @@ MULTIGPU_SEED = 21
 MULTIGPU_CASES = (("moe_sweep_1x2", True, "sweep", 1, 2), ("moe_gmm_1x2", True, "gmm", 1, 2),
                   ("moe_auto_2x1", True, "auto", 2, 1), ("yolo_2x1", False, "gmm", 2, 1))
 MULTIGPU_RANKS = 2
+# RT-DETR r50vd (scripts/train_rtdetr.py's trainer) on 2 data x 1 expert, the
+# global batch of rt_train_batch's frames and 96 ground-truth slots.
+MULTIGPU_RT, MULTIGPU_RT_SEED = ("rtdetr_2x1", 2, 1), 23
+# RT-DETR at random init is ill-conditioned: float32 noise (statistics
+# summed in another order) moves the decoder's costs, and the backward
+# through the random r50vd trunk, which carries almost all of the gradient
+# (norm ~4e3, clipped to 10), turns it into a ~9% change of the gradient's
+# direction in every trunk leaf, where its norm and its scale (its
+# projection on the one-process gradient) move by ~1e-3 (CPU, r50vd
+# 128x256, B=4, the batch's halves swapped). The ranks therefore replay the
+# one-process step's query selection and matching, and the loss and each
+# part, the gradient's norm and scale (summed over the ranks, before the
+# clip) and Adam's mu (0.1 of the clipped gradient: blind to the gradient's
+# scale) are held to 3x what the one-process step itself moves by when
+# repeated or when its batch's halves are swapped; the scale of each group
+# of leaves (top-level module) whose direction that noise moves by at most
+# 10% is held to 0.125, half the smaller planted fault's. Two planted
+# faults must fail these checks: detr_loss summing only its counts over the
+# ranks (the gradient comes out ranks x too small: scale -0.5) and rank 1's
+# loss halved (-0.25). On an H100 80GB HBM3 at 700 W, this phase's inputs:
+# the gradient's norm 1254, the swapped batch moves its direction 27%, its
+# norm 0.95% and its scale 4.6%, the mesh 34%, 0.75% and 6.6%; the steady
+# modules' scales at most 7.2e-2 off; the controls' scales -0.53 and -0.30
+# (their noise-free encoder score head: -0.5000 and -0.2500). The decoder's
+# forward is itself chaotic at this size (each layer samples the value maps
+# where the last one put its boxes): the matcher's costs move by up to 2.9
+# with the batch's order alone. The ranks' own matching may differ from the
+# one-process one only where the one-process costs prefer their choice by
+# no more than the two steps' costs differ on the two assignments (a bound
+# that holds for any pair of exact matchers).
+MG_RT_LOSS_RTOL = 1e-4       # the loss's (and each part's) floor, of the loss
+MG_RT_NOISE_FACTOR = 3.0     # every check against the one-process noise
+MG_RT_GRAD_RTOL = 1e-3       # mu's floor, and the EMA (lr 0: equal to the parameters)
+MG_RT_BN_TOL = 1e-5          # running mean (of sqrt var) and variance, relative
+MG_RT_GRAD_SCALE_RTOL = 1e-2  # the gradient norm's and scale's floor
+MG_RT_GROUP_NOISE = 0.1      # a group whose gradient the one-process noise turns by at most this
+MG_RT_GROUP_SCALE_TOL = 0.125  # ... keeps its scale within this: half the smaller control's
+MG_RT_CONTROLS = ("numerators_local", "rank1_loss_halved")
+# The two-rank fit: MoE-YOLO-s on 1 x 2 (gmm), two global steps of 16, rank
+# 0 validating over two batches of 8 with make_ema_val_fn.
+MULTIGPU_FIT_FRAMES, MULTIGPU_VAL_FRAMES, MULTIGPU_VAL_B = 32, 16, 8
 # The CPU tests' tolerances (tests/test_torch_distributed.py).
 MG_LOSS_RTOL, MG_PARAM_TOL, MG_TRACE_RTOL, MG_BN_TOL = 1e-5, 1e-3, 1e-3, 1e-6
 # Routing: identical outside the near ties, which stay under 1% of a level's
@@ -4409,11 +4489,173 @@ def multigpu_step(trainer, state, batch) -> dict:
             "step_ms": start.elapsed_time(end), "state": state}
 
 
+@contextlib.contextmanager
+def replayed_choices(record: dict, replay: "dict | None" = None,
+                     rows: "torch.Tensor | None" = None, keep_cost: bool = False):
+    """RT-DETR's two discrete choices wrapped: the query selection
+    (``stable_topk``) and ``detr_loss``'s matcher. Each call's own choice
+    (with ``keep_cost`` the matcher's cost) goes into ``record``; with
+    ``replay`` (each call's choice over the global batch, the matcher's
+    layer-major), the rows ``rows`` of it (the global rows this process
+    holds, in its order) are returned in place of its own, so that two
+    runs compare on the same queries and the same matching."""
+    record.setdefault("select", [])
+    record.setdefault("assign", [])
+
+    def make_select(real):
+        def select(scores, k):
+            values, idx = real(scores, k)
+            record["select"].append(idx.cpu())
+            if replay is None:
+                return values, idx
+            idx = replay["select"][len(record["select"]) - 1][rows].to(scores.device)
+            return torch.gather(scores, 1, idx), idx
+        return select
+
+    def make_assign(real):
+        def assign(cost, col_valid=None):
+            own = real(cost, col_valid)
+            rec = {"assigned": own.cpu()}
+            if keep_cost:
+                rec.update(cost=cost.detach().float().cpu(), valid=col_valid.cpu())
+            record["assign"].append(rec)
+            if replay is None:
+                return own
+            ref = replay["assign"][len(record["assign"]) - 1]
+            layers = ref.shape[0] // MULTIGPU_B
+            return ref.reshape(layers, MULTIGPU_B, -1)[:, rows].reshape(own.shape).to(own.device)
+        return assign
+
+    with patched(rtdetr_module, "stable_topk", make_select), \
+            patched(hungarian_module, "batched_lsa_assign", make_assign):
+        yield record
+
+
+def rt_multigpu_step(trainer, state, batch, replay=None, rows=None, keep_cost=False,
+                     draws=None, keep_grads=False) -> dict:
+    """One RT-DETR step from ``state`` with its choices recorded (and
+    replayed): the metrics, B4's and B5's launches, the step's time on the
+    card, the state after it and, with ``keep_grads``, the gradients the
+    optimizer was given (summed over the ranks, before the clip) on the
+    host."""
+    record, grads = {}, {}
+    deformable_kernel.ms_deform_fwd_launches = deformable_kernel.ms_deform_bwd_launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if keep_grads:
+        real_apply = state.apply_gradients
+
+        def apply(g):
+            grads.update({k: v.detach().to("cpu", torch.float32, copy=True)
+                          for k, v in g.items()})
+            return real_apply(g)
+
+        state.apply_gradients = apply
+    try:
+        with replayed_choices(record, replay, rows, keep_cost):
+            torch.cuda.synchronize()
+            start.record()
+            state, metrics = trainer.train_step(state, batch, draws=draws)
+            end.record()
+            torch.cuda.synchronize()
+    finally:
+        if keep_grads:
+            del state.apply_gradients
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "choices": record,
+            "launches": {"ms_deform_fwd": deformable_kernel.ms_deform_fwd_launches,
+                         "ms_deform_bwd": deformable_kernel.ms_deform_bwd_launches},
+            "step_ms": start.elapsed_time(end), "state": state, "grads": grads}
+
+
+def own_choices(choices: dict, costs: bool = False) -> dict:
+    """A step's own selection and matching, as ``replayed_choices`` replays
+    them; with ``costs`` the matcher's costs too."""
+    out = {"select": choices["select"], "assign": [a["assigned"] for a in choices["assign"]]}
+    if costs:
+        out["cost"] = [a["cost"] for a in choices["assign"]]
+    return out
+
+
+@contextlib.contextmanager
+def planted_fault(fault: str, trainer, rank: int):
+    """A fault planted for the ``rtdetr_2x1`` checks' controls:
+    ``numerators_local`` has ``detr_loss`` sum only its two counts over the
+    ranks (each rank's numerators stay its own, so the gradient comes out
+    ranks x too small); ``rank1_loss_halved`` halves rank 1's loss."""
+    real_mesh, real_loss = hungarian_module.active_mesh, trainer.loss_fn
+
+    class CountsOnly:
+        def __init__(self, mesh):
+            self.mesh = mesh
+
+        def all_reduce(self, flat):
+            return torch.cat([flat[:-2], self.mesh.all_reduce(flat)[-2:]])
+
+    def halved(*a, **k):
+        total, metrics = real_loss(*a, **k)
+        return total * 0.5, metrics
+
+    if fault == "numerators_local":
+        hungarian_module.active_mesh = lambda: CountsOnly(real_mesh())
+    elif fault == "rank1_loss_halved":
+        if rank == 1:
+            trainer.loss_fn = halved
+    else:
+        raise ValueError(f"unknown fault {fault}")
+    try:
+        yield
+    finally:
+        hungarian_module.active_mesh, trainer.loss_fn = real_mesh, real_loss
+
+
+class RankLoader:
+    """``fit``'s loader contract over this process's strided shard of a
+    global host split (as ``DetectionLoader`` shards it)."""
+
+    def __init__(self, data: dict, local_batch: int, rank: int, world: int):
+        self.process_index, self.process_count = rank, world
+        self.data, self.local_batch = data, local_batch
+        self.idx = list(range(len(data["image"])))[rank::world]
+
+    def __len__(self):
+        return len(self.idx) // self.local_batch
+
+    def __iter__(self):
+        for i in range(len(self)):
+            sel = self.idx[i * self.local_batch:(i + 1) * self.local_batch]
+            yield {k: v[sel] for k, v in self.data.items()}
+
+
+def host_split(n: int, seed: int) -> dict:
+    """``yolo_train_batch``'s frames as host numpy arrays."""
+    return {k: v.numpy() for k, v in yolo_train_batch(n, seed, torch.device("cpu")).items()}
+
+
+def multigpu_fit(dev, mesh, work: Path) -> dict:
+    """One epoch of ``fit`` on ``mesh`` validating with ``make_ema_val_fn``:
+    the history, B1's launches on this rank (rank 0 validates), the time."""
+    from multimodal_moe_torch.parallel.distributed import loader_shard
+
+    rank, world = loader_shard()
+    data = host_split(MULTIGPU_FIT_FRAMES, seed=MULTIGPU_SEED + 5)
+    val = host_split(MULTIGPU_VAL_FRAMES, seed=MULTIGPU_SEED + 6)
+    val_batches = [{k: v[i:i + MULTIGPU_VAL_B] for k, v in val.items()}
+                   for i in range(0, MULTIGPU_VAL_FRAMES, MULTIGPU_VAL_B)]
+    trainer = yolo_trainer(dev, MULTIGPU_B, dispatch="gmm", mesh=mesh, epochs=1)
+    val_fn = evaluator.make_ema_val_fn(trainer.model, lambda: iter(val_batches))
+    nms_kernel.nms_keep_launches = 0
+    t0 = time.perf_counter()
+    _, summary = trainer.fit(RankLoader(data, MULTIGPU_B // world, rank, world),
+                             run_dir=work / "fit_val", val_fn=val_fn, log_every=1)
+    torch.cuda.synchronize()
+    return {"history": summary["history"], "nms_keep": nms_kernel.nms_keep_launches,
+            "fit_s": time.perf_counter() - t0, "val_batches": len(val_batches)}
+
+
 def to_cpu(obj):
     """Every tensor of a nested dict on the host."""
     if isinstance(obj, dict):
         return {k: to_cpu(v) for k, v in obj.items()}
-    return obj.cpu() if torch.is_tensor(obj) else obj
+    return obj.detach().to("cpu", copy=True) if torch.is_tensor(obj) else obj
 
 
 def multigpu_rank(work: Path) -> int:
@@ -4453,6 +4695,47 @@ def multigpu_rank(work: Path) -> int:
         del trainer, state, r
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
+    del batch
+
+    # RT-DETR on 2 x 1: the first step on the one-process step's assignments
+    # (its own recorded beside them), then a second step for its time.
+    name, nd, ne = MULTIGPU_RT
+    mesh = meshes[(nd, ne)]
+    batch = rt_train_batch(MULTIGPU_B, seed=MULTIGPU_RT_SEED, dev=dev)
+    rows = batch_slice(mesh, MULTIGPU_B)
+    local = {k: v[rows] for k, v in batch.items()}
+    replay = torch.load(work / "rt_choices.pt", weights_only=True)
+    trainer = rtdetr_trainer(dev, MULTIGPU_B, mesh=mesh)
+    state = trainer.init_state()
+    global_rows = torch.arange(MULTIGPU_B)[rows]
+    r = rt_multigpu_step(trainer, state, local, replay=replay, rows=global_rows,
+                         keep_cost=True, keep_grads=rank == 0)
+    state = r.pop("state")
+    sd = one_process_state_dict(state, mesh)
+    rec = {"metrics": r["metrics"], "launches": r["launches"], "first_step_ms": r["step_ms"],
+           "own": own_choices(r["choices"], costs=True), "grads": r["grads"]}
+    if rank == 0:
+        rec.update(model=to_cpu(sd["model"]), mu=to_cpu(sd["opt_state"]["mu"]),
+                   ema=to_cpu(sd["ema_params"]))
+    rec["step_ms"] = rt_multigpu_step(trainer, state, local)["step_ms"]
+    rec["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    del state, r, sd
+    torch.cuda.empty_cache()
+    # The checks' controls: the same first step with a fault planted.
+    rec["controls"] = {}
+    for fault in MG_RT_CONTROLS:
+        state = trainer.init_state()
+        with planted_fault(fault, trainer, rank):
+            r = rt_multigpu_step(trainer, state, local, replay=replay, rows=global_rows,
+                                 keep_grads=rank == 0)
+        rec["controls"][fault] = {"metrics": r["metrics"], "grads": r["grads"]}
+        del state, r
+        torch.cuda.empty_cache()
+    records[name] = rec
+    del trainer, batch, local
+    torch.cuda.empty_cache()
+
+    records["fit"] = multigpu_fit(dev, meshes[(1, 2)], work)
     torch.save(records, work / f"rank{rank}.pt")
     import torch.distributed as dist
 
@@ -4506,14 +4789,247 @@ def routing_compare(got: list, ref: list) -> list:
     return out
 
 
+def rt_global_draws(trainer, dev) -> dict:
+    """The draws the trainer's first step makes for the global batch:
+    ``train_augment``'s from stream 0, the denoising ``shift_u`` then
+    ``scale_u`` from stream 1 (``build_denoising_queries``' order)."""
+    shape = (MULTIGPU_B, 2 * RT_DN_GROUPS, RT_MAX_BOXES, 2)
+    dn = trainer._generator(0, 1)
+    shift = torch.rand(shape, generator=dn, device=dev) * 2 - 1
+    scale = torch.rand(shape, generator=dn, device=dev) - 0.5
+    return {"augment": augment_draws(MULTIGPU_B, trainer._generator(0, 0), dev),
+            "denoise": (shift, scale)}
+
+
+def rtdetr_reference(dev, work: Path) -> dict:
+    """The one-process RT-DETR step on the global batch with its query
+    selection and matching recorded (the matcher's costs kept; both written
+    to ``work`` for the ranks to replay), then a second step for its time.
+    Then the noise floor, two more one-process first steps on the same
+    draws, selection and matching: ``repeated`` (the same batch again: the
+    card's own run-to-run rounding) and ``reordered`` (the batch's halves
+    swapped, which changes only the order of the batch's sums)."""
+    batch = rt_train_batch(MULTIGPU_B, seed=MULTIGPU_RT_SEED, dev=dev)
+    trainer = rtdetr_trainer(dev, MULTIGPU_B)
+    state = trainer.init_state()
+    before = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    r = rt_multigpu_step(trainer, state, batch, keep_cost=True, keep_grads=True)
+    state = r.pop("state")
+    replay = own_choices(r["choices"])
+    torch.save(replay, work / "rt_choices.pt")
+    sd = state.state_dict()
+    ref = {"metrics": r["metrics"], "launches": r["launches"], "assign": r["choices"]["assign"],
+           "select": replay["select"], "grads": r["grads"], "before": before,
+           "model": to_cpu(sd["model"]),
+           "mu": to_cpu(sd["opt_state"]["mu"]), "ema": to_cpu(sd["ema_params"]),
+           "step_ms": rt_multigpu_step(trainer, state, batch)["step_ms"],
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    del state, r, sd
+    torch.cuda.empty_cache()
+
+    draws = rt_global_draws(trainer, dev)
+    for name, perm in (("repeated", torch.arange(MULTIGPU_B)),
+                       ("reordered", torch.roll(torch.arange(MULTIGPU_B), MULTIGPU_B // 2))):
+        on_dev = perm.to(dev)
+        state = trainer.init_state()
+        r = rt_multigpu_step(
+            trainer, state, {k: v[on_dev] for k, v in batch.items()}, replay=replay, rows=perm,
+            draws={"augment": {k: v[on_dev] for k, v in draws["augment"].items()},
+                   "denoise": tuple(d[on_dev] for d in draws["denoise"])},
+            keep_cost=True, keep_grads=True)
+        own = own_choices(r["choices"], costs=True)
+        inverse = torch.argsort(perm)
+        in_order = lambda a: a.reshape((-1, MULTIGPU_B) + a.shape[1:])[:, inverse].reshape(  # noqa: E731
+            a.shape)
+        ref[name] = {
+            "metrics": r["metrics"], "mu": to_cpu(r["state"].opt.state["mu"]),
+            "grads": r["grads"],
+            "own": {"select": [own["select"][0][inverse]],
+                    "assign": [in_order(a) for a in own["assign"]],
+                    "cost": [in_order(c) for c in own["cost"]]}}
+        del state, r
+    del trainer, batch
+    torch.cuda.empty_cache()
+    return ref
+
+
+def rel_diff(got: dict, ref: dict) -> float:
+    """‖got − ref‖ / ‖ref‖ over all tensors of ``ref`` together."""
+    diff = sum(float(((got[k] - v).double() ** 2).sum()) for k, v in ref.items())
+    return (diff / max(sum(float((v.double() ** 2).sum()) for v in ref.values()), 1e-300)) ** 0.5
+
+
+def rt_step_errors(got: dict, ref: dict) -> dict:
+    """The multi-rank RT-DETR state after its first step against the
+    one-process one: parameters (the first step's lr is 0) and running
+    statistics by ``step_errors``' rules, Adam's ``mu`` (0.1 of the
+    gradient) and the EMA over all tensors together, relative to their
+    norms; and ``mu`` of the repeated and reordered one-process steps."""
+    out = step_errors({"model": got["model"]}, {"model": ref["model"], "before": ref["before"],
+                                                "opt_state": {"trace": {}}})
+    del out["trace"]
+    out["mu"], out["ema"] = rel_diff(got["mu"], ref["mu"]), rel_diff(got["ema"], ref["ema"])
+    for name in ("repeated", "reordered"):
+        out[f"{name}_mu"] = rel_diff(ref[name]["mu"], ref["mu"])
+    return out
+
+
+def choice_flips(own: dict, ref: dict) -> dict:
+    """A run's own query selection and matching (in the global batch's
+    order) against the one-process step's: the images that selected
+    another query set, the (layer × image) problems assigned otherwise, the
+    one-process optimality margins among those, and the near-tie bound.
+    Both runs match the same queries (the selection replayed), so with
+    costs ``C`` (one process) and ``C'`` (the run), each matcher exact,
+    ``C(A') − C(A) ≤ Σ_A' |C' − C| + Σ_A |C' − C|``: a run's assignment
+    ``A'`` may cost more than ``A`` under ``C`` only by what the two costs
+    differ on the two assignments. ``excess_within_bound`` says every
+    differing problem keeps that bound (else a matcher is not exact or was
+    given other costs)."""
+    pick = lambda i: torch.sort(i, -1).values  # noqa: E731
+    select = int((pick(own["select"][0]) != pick(ref["select"][0])).any(-1).sum())
+    want = ref["assign"][0]
+    differ = torch.nonzero((own["assign"][0] != want["assigned"]).any(-1)).flatten().tolist()
+    margins = [assignment_margin(want["cost"][i].numpy(), want["valid"][i].numpy())
+               for i in differ]
+    out = {"images": int(ref["select"][0].shape[0]), "selection_differs": select,
+           "problems": int(want["assigned"].shape[0]), "matching_differs": len(differ),
+           "max_margin_of_differing": max(margins) if margins else None,
+           "differing_with_margin_le_1e-5": sum(m <= 1e-5 for m in margins)}
+    if "cost" in own:
+        got_cost, excess = own["cost"][0].double(), []
+        for i in differ:
+            cols = torch.nonzero(want["valid"][i]).flatten()
+            c_ref = want["cost"][i].double()
+            delta = (got_cost[i] - c_ref).abs()
+            a_own, a_ref = own["assign"][0][i][cols], want["assigned"][i][cols]
+            excess.append((float(c_ref[a_own, cols].sum() - c_ref[a_ref, cols].sum()),
+                           float(delta[a_own, cols].sum() + delta[a_ref, cols].sum())))
+        valid = want["valid"][:, None, :].expand_as(got_cost)
+        out.update(max_cost_diff=float((got_cost - want["cost"].double()).abs()[valid].max()),
+                   max_excess=max((x for x, _ in excess), default=None),
+                   excess_within_bound=all(x <= b + 1e-6 for x, b in excess))
+    return out
+
+
+def grad_errors(got: dict, ref: dict, noise: dict) -> dict:
+    """A step's gradient (summed over the ranks, before the clip) against
+    the one-process step's, beside the one-process ``noise`` steps': the
+    global norm's relative error; the scale ``<g, g_ref> / |g_ref|^2 - 1``,
+    of the whole and of each group of leaves (the model's top-level
+    modules), which the float32 noise barely moves (it turns the gradient's
+    direction, it does not rescale it) and a fault in the loss's sums
+    moves by a fraction of one; the relative error of the whole and of each
+    group; the five leaves the noise moves most. Leaves without gradient
+    are left out."""
+    live = [k for k, v in ref.items() if bool(v.any())]
+    names = {k: k.split(".")[0] for k in live}
+
+    def sums(g):
+        """Per group: <g, ref>, |ref|^2, |g - ref|^2, |g|^2."""
+        out = {}
+        for k in live:
+            x, r = g[k].double(), ref[k].double()
+            acc = out.setdefault(names[k], [0.0, 0.0, 0.0, 0.0])
+            acc[0] += float((x * r).sum())
+            acc[1] += float((r * r).sum())
+            acc[2] += float(((x - r) ** 2).sum())
+            acc[3] += float((x * x).sum())
+        return out
+
+    def summary(acc):
+        tot = [sum(v[i] for v in acc.values()) for i in range(4)]
+        return {"norm_rel_err": abs((tot[3] / tot[1]) ** 0.5 - 1), "scale": tot[0] / tot[1] - 1,
+                "rel_err": (tot[2] / tot[1]) ** 0.5,
+                "groups": {n: {"scale": v[0] / v[1] - 1, "rel_err": (v[2] / v[1]) ** 0.5,
+                               "share_of_norm": (v[1] / tot[1]) ** 0.5}
+                           for n, v in acc.items() if v[1] > 0}}
+
+    mine, others = summary(sums(got)), {n: summary(sums(g)) for n, g in noise.items()}
+    leaf_noise = {k: max(float((g[k].double() - ref[k].double()).norm() / ref[k].double().norm())
+                         for g in noise.values()) for k in live}
+    for n, grp in mine["groups"].items():
+        grp["noise_scale"] = max(abs(o["groups"][n]["scale"]) for o in others.values())
+        grp["noise_rel_err"] = max(o["groups"][n]["rel_err"] for o in others.values())
+    return {**mine, "one_process_norm": sum(float((ref[k].double() ** 2).sum())
+                                              for k in live) ** 0.5,
+            "noise": {n: {k: o[k] for k in ("norm_rel_err", "scale", "rel_err")}
+                      for n, o in others.items()},
+            "leaves": len(ref), "live_leaves": len(live),
+            "loudest_leaves": {k: {"noise_rel_err": leaf_noise[k],
+                                   "rel_err": float((got[k].double() - ref[k].double()).norm()
+                                                    / ref[k].double().norm())}
+                               for k in sorted(live, key=lambda k: -leaf_noise[k])[:5]}}
+
+
+def rt_step_record(metrics_by_rank: list, grads: dict, ref: dict) -> dict:
+    """A mesh step's loss and gradient against the one-process step's, and
+    which checks they pass (``rt_checks``)."""
+    got = metrics_by_rank[0]
+    loss, ref_loss = got["loss"], ref["metrics"]["loss"]
+    rec = {"loss": loss, "loss_rel_err": abs(loss - ref_loss) / abs(ref_loss),
+           "parts_err_over_loss": max(abs(got[k] - v) / abs(ref_loss)
+                                      for k, v in ref["metrics"].items()),
+           "noise_loss_rel_err": {n: abs(ref[n]["metrics"]["loss"] - ref_loss) / abs(ref_loss)
+                                  for n in ("repeated", "reordered")},
+           "metric_keys_equal": set(got) == set(ref["metrics"]),
+           "metrics_equal_on_ranks": all(m == got for m in metrics_by_rank),
+           "grad": grad_errors(grads, ref["grads"],
+                               {n: ref[n]["grads"] for n in ("repeated", "reordered")})}
+    rec["checks"] = rt_checks(rec)
+    return rec
+
+
+def rt_checks(rec: dict) -> dict:
+    """``rtdetr_2x1``'s checks of a step's loss and gradient: the loss and
+    its parts, the gradient's norm and scale each within
+    ``MG_RT_NOISE_FACTOR`` times the one-process noise (with their floors),
+    and the scale of every group whose direction the noise moves by at most
+    ``MG_RT_GROUP_NOISE`` within ``MG_RT_GROUP_SCALE_TOL``."""
+    factor, g = MG_RT_NOISE_FACTOR, rec["grad"]
+    loss_tol = max(factor * max(rec["noise_loss_rel_err"].values()), MG_RT_LOSS_RTOL)
+    noise = g["noise"].values()
+    norm_tol = max(factor * max(n["norm_rel_err"] for n in noise), MG_RT_GRAD_SCALE_RTOL)
+    scale_tol = max(factor * max(abs(n["scale"]) for n in noise), MG_RT_GRAD_SCALE_RTOL)
+    steady = [v for v in g["groups"].values() if v["noise_rel_err"] <= MG_RT_GROUP_NOISE]
+    return {
+        "loss": bool(np.isfinite(rec["loss"]) and rec["loss_rel_err"] <= loss_tol
+                     and rec["parts_err_over_loss"] <= loss_tol and rec["metric_keys_equal"]),
+        "metrics_equal_on_ranks": rec["metrics_equal_on_ranks"],
+        "grad_norm": g["norm_rel_err"] <= norm_tol,
+        "grad_scale": abs(g["scale"]) <= scale_tol,
+        "group_scales": len(steady) > 0
+        and all(abs(v["scale"]) <= MG_RT_GROUP_SCALE_TOL for v in steady)}
+
+
+def ranks_choices(ranks: list) -> dict:
+    """The ranks' own selection, matching and matcher costs put back in the
+    global batch's order."""
+    owns = [r["own"] for r in ranks]
+    layers = owns[0]["assign"][0].shape[0] * len(ranks) // MULTIGPU_B
+
+    def cat(key):
+        parts = [o[key][0].reshape((layers, MULTIGPU_B // len(ranks)) + o[key][0].shape[1:])
+                 for o in owns]
+        return [torch.cat(parts, 1).reshape((layers * MULTIGPU_B,) + parts[0].shape[2:])]
+
+    return {"select": [torch.cat([o["select"][0] for o in owns])], "assign": cat("assign"),
+            "cost": cat("cost")}
+
+
 def phase_multigpu(dev, smi: str) -> dict:
     """The trainer on a mesh: two gloo ranks on the one card (NCCL refuses
     two ranks on one device), MoE-YOLO-s (E=4) at 704x1248, global B=16,
-    on 1 data x 2 expert (``sweep``, ``gmm``) and 2 x 1 (``auto``), and
-    YOLO-s on 2 x 1, fp32 with TF32 off: each first step against the
-    one-process step on the same global batch, weights and draws; B3's
-    launches a rank on ``gmm``; then ``dryrun_multichip(2)`` through NCCL
-    (one rank: the card is one)."""
+    on 1 data x 2 expert (``sweep``, ``gmm``) and 2 x 1 (``auto``), YOLO-s
+    on 2 x 1 and RT-DETR r50vd on 2 x 1, fp32 with TF32 off: each first
+    step against the one-process step on the same global batch, weights and
+    draws (RT-DETR's on the one-process query selection and matching, its
+    own recorded, beside the one-process step on the reordered batch); B3's
+    launches a rank on ``gmm``, B4's and B5's on RT-DETR; a one-epoch
+    ``fit`` of MoE-YOLO-s on 1 x 2 validating with ``make_ema_val_fn``
+    (rank 0 evaluates, the metrics broadcast); then
+    ``dryrun_multichip(2)`` through NCCL (one rank: the card is one)."""
     from multimodal_moe_torch.entry import dryrun_multichip
     from multimodal_moe_torch.parallel.distributed import run_ranks
 
@@ -4539,13 +5055,15 @@ def phase_multigpu(dev, smi: str) -> dict:
     del batch
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         work = Path(tmp)
+        rt_ref = rtdetr_reference(dev, work)
+        t0 = time.perf_counter()
         run_ranks([sys.executable, str(ROOT / "chip_smoke.py"), "--multigpu-rank", str(work)],
                   MULTIGPU_RANKS, timeout=600, cwd=str(ROOT))
         ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
                  for r in range(MULTIGPU_RANKS)]
+        progress = json.loads((work / "fit_val" / "fit_progress.json").read_text())
     ranks_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     dry = dryrun_multichip(2)
@@ -4575,7 +5093,64 @@ def phase_multigpu(dev, smi: str) -> dict:
             "peak_mem_gib_per_rank": [r[name]["peak_mem_gib"] for r in ranks],
             "one_process_peak_mem_gib": ref["peak_mem_gib"],
         }
+    name = MULTIGPU_RT[0]
+    got = ranks[0][name]
+    rec["rtdetr"] = {
+        "name": name, "model": "rtdetr r50vd, remat, AdamW 1e-4",
+        "mesh": {"data": MULTIGPU_RT[1], "expert": MULTIGPU_RT[2]},
+        "one_process_loss": rt_ref["metrics"]["loss"],
+        **rt_step_record([r[name]["metrics"] for r in ranks], got["grads"], rt_ref),
+        "controls": {f: rt_step_record([r[name]["controls"][f]["metrics"] for r in ranks],
+                                       got["controls"][f]["grads"], rt_ref)
+                     for f in MG_RT_CONTROLS},
+        "errors": rt_step_errors(got, rt_ref),
+        "own_choices": choice_flips(ranks_choices([r[name] for r in ranks]), rt_ref),
+        "noise_own_choices": {n: choice_flips(rt_ref[n]["own"], rt_ref)
+                              for n in ("repeated", "reordered")},
+        "launches_per_rank": [r[name]["launches"] for r in ranks],
+        "one_process_launches": rt_ref["launches"],
+        "first_step_ms_per_rank": [r[name]["first_step_ms"] for r in ranks],
+        "step_ms_per_rank": [r[name]["step_ms"] for r in ranks],
+        "one_process_step_ms": rt_ref["step_ms"],
+        "peak_mem_gib_per_rank": [r[name]["peak_mem_gib"] for r in ranks],
+        "one_process_peak_mem_gib": rt_ref["peak_mem_gib"]}
+    fits = [r["fit"] for r in ranks]
+    rec["fit"] = {"model": "moe-yolo-s E=4 gmm", "mesh": {"data": 1, "expert": 2},
+                  "frames": MULTIGPU_FIT_FRAMES, "val_frames": MULTIGPU_VAL_FRAMES,
+                  "history_equal_on_ranks": all(f["history"] == fits[0]["history"] for f in fits),
+                  "progress_equal": progress["history"] == fits[0]["history"],
+                  "val": {k: v for k, v in fits[0]["history"][-1].items() if k.startswith("val_")
+                          and not k.startswith("val_speed")},
+                  "loss": fits[0]["history"][-1].get("loss"),
+                  "nms_keep_per_rank": [f["nms_keep"] for f in fits],
+                  "fit_s_per_rank": [f["fit_s"] for f in fits]}
     emit(rec)
+    rt = rec["rtdetr"]
+    check(all(rt["checks"].values()),
+          f"multigpu {name}: loss {rt['loss']} against one process {rt['one_process_loss']}, "
+          f"checks {rt['checks']}, gradient {rt['grad']}")
+    for fault, c in rt["controls"].items():
+        check(not all(c["checks"].values()),
+              f"multigpu {name}: the planted fault {fault} passed every check {c}")
+    own = rt["own_choices"]
+    check(own["excess_within_bound"],
+          f"multigpu {name}: the ranks' own matching prefers assignments beyond the cost "
+          f"difference {own}")
+    e = rt["errors"]
+    check(e["param"] <= 1.0 and e["bn_mean"] <= MG_RT_BN_TOL and e["bn_var"] <= MG_RT_BN_TOL
+          and e["mu"] <= max(MG_RT_NOISE_FACTOR * max(e["repeated_mu"], e["reordered_mu"]),
+                             MG_RT_GRAD_RTOL)
+          and e["ema"] <= MG_RT_GRAD_RTOL, f"multigpu {name}: state after the step {e}")
+    want = {"ms_deform_fwd": 6, "ms_deform_bwd": 6}
+    check(all(lr == want for lr in rt["launches_per_rank"]) and rt["one_process_launches"] == want,
+          f"multigpu {name}: B4/B5 launches a rank {rt['launches_per_rank']}, expected {want}")
+    f = rec["fit"]
+    check(f["history_equal_on_ranks"] and f["progress_equal"]
+          and f["val"].get("val_n_images") == MULTIGPU_VAL_FRAMES
+          and f["loss"] is not None and np.isfinite(f["loss"]),
+          f"multigpu fit: the ranks' histories and validation {f}")
+    check(f["nms_keep_per_rank"] == [fits[0]["val_batches"], 0],
+          f"multigpu fit: B1 launches a rank {f['nms_keep_per_rank']}")
     for name, c in rec["cases"].items():
         check(np.isfinite(c["loss"]) and c["loss_rel_err"] <= MG_LOSS_RTOL,
               f"multigpu {name}: loss {c['loss']} against one process {c['one_process_loss']}")
@@ -4700,6 +5275,7 @@ def phase_remat(dev, smi: str) -> dict:
 # --------------------------------------------------------------------------
 
 CLI_TRAIN_FRAMES, CLI_VAL_FRAMES = 64, 32
+ROUTING_PER_CONTEXT = 5   # the val split's 32 frames hold 5 or 6 of each solar bin
 CLI_TIMEOUT_S = 300
 CLI_RUN_FILES = {"model_config.json", "fit_progress.json", "train_summary.json",
                  "train_summary.csv", "train_metrics.json", "run_metadata.json",
@@ -4907,6 +5483,47 @@ def phase_cli(dev, smi: str, evaluate_keys: set) -> dict:
         check(rec["eval_int8"]["reused_npz"] and m8.get("quantization") == "int8_w8a8_ptq",
               "eval_detector --int8 read quantize_yolo's npz")
         check(ev8["launches"]["nms_keep"] == val_batches, f"int8 eval B1 {ev8['launches']}")
+
+        # (e) train_vision_baseline as a child on the train split (the
+        # subset is the split): ResNet-50 at 256x256, B=32, two epochs.
+        plot = root / "plots" / "train_acc.png"
+        vb, vlog = run_cli_child("multimodal_moe_torch.cli.train_vision_baseline",
+                                 ["--parquet", data["parquet"],
+                                  "--split-csv", data["splits"] / "train_ids.csv",
+                                  "--img-size", 256, "--batch", 32, "--epochs", 2,
+                                  "--plot-path", plot], env)
+        check_child(vb, "train_vision_baseline")
+        epochs = [{"loss": float(loss), "acc": float(acc)}
+                  for loss, acc in re.findall(r"epoch \d+/2 loss=(\S+) acc=(\S+)", vlog)]
+        wall = re.search(r"train wall time: (\S+)s", vlog)
+        rec["train_vision_baseline"] = {
+            **vb, "epochs": epochs, "steps_per_epoch": CLI_TRAIN_FRAMES // 32,
+            "train_wall_s": float(wall.group(1)) if wall else None,
+            "plot": "written" if plot.exists() else ("skipped" if "skipped plot" in vlog else None)}
+        check(len(epochs) == 2 and all(np.isfinite(e["loss"]) for e in epochs)
+              and wall is not None and rec["train_vision_baseline"]["plot"] is not None,
+              f"train_vision_baseline: {rec['train_vision_baseline']}")
+
+        # (f) analyze_moe_routing as a child on (a)'s run dir, over the val
+        # split's bins (every one holds at least ROUTING_PER_CONTEXT frames).
+        out_dir = root / "routing"
+        ar, _ = run_cli_child("multimodal_moe_torch.cli.analyze_moe_routing",
+                              [*common, "--weights", run, "--per-context", ROUTING_PER_CONTEXT,
+                               "--out-dir", out_dir], env)
+        check_child(ar, "analyze_moe_routing")
+        payload = json.loads((out_dir / "routing_by_context.json").read_text())
+        loads = {k: np.asarray(v) for k, v in payload["expert_load_by_context"].items()}
+        sums = [float(x) for v in loads.values() for x in v.sum(-1)]
+        rec["analyze_moe_routing"] = {
+            **ar, "bins": list(loads), "report_written": (out_dir / "routing_report.md").exists(),
+            "keys": sorted(payload), "load_row_sums": [min(sums), max(sums)] if sums else None,
+            "max_l1_divergence": max((x for v in payload["l1_divergence_per_level"].values()
+                                      for x in v), default=None),
+            "max_counterfactual_shift": max((x for v in payload[
+                "counterfactual_ctx_shift_per_level"].values() for x in v), default=None)}
+        check(rec["analyze_moe_routing"]["report_written"] and len(loads) == len(DATA_SOLAR)
+              and all(abs(x - MOE_K) <= 1e-5 for x in sums),
+              f"analyze_moe_routing: {rec['analyze_moe_routing']}")
     rec["seconds"] = time.perf_counter() - t0
     emit(rec)
     return rec
@@ -5016,6 +5633,14 @@ def main() -> int:
     bwd_entry["cli_launches"] = {
         "train_rtdetr": cli["train_rtdetr"]["launches"]["ms_deform_bwd"],
         "per_train_step": cli["train_rtdetr"]["train_launches_per_step"]["ms_deform_bwd"]}
+    # The mesh's RT-DETR step (each rank) and two-rank fit (rank 0 validates).
+    deform_entry["multigpu_launches"] = [
+        r["ms_deform_fwd"] for r in multigpu["rtdetr"]["launches_per_rank"]]
+    bwd_entry["multigpu_launches"] = [
+        r["ms_deform_bwd"] for r in multigpu["rtdetr"]["launches_per_rank"]]
+    nms_entry["multigpu_val_launches"] = multigpu["fit"]["nms_keep_per_rank"]
+    nms_entry["cli_launches"]["analyze_moe_routing"] = \
+        cli["analyze_moe_routing"]["launches"]["nms_keep"]
     counts = moe_train["dispatch"]["gmm"]["launches_per_step"]
     gmm_entries = gmm_kernel_entries(gmm_cases, {
         "gmm": counts["gmm_forward"], "gmm_transposed": counts["gmm"] - counts["gmm_forward"],

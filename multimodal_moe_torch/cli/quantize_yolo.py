@@ -13,7 +13,8 @@ and the w8a8 expert sweep; rtdetr: the backbone and the CCFF encoder convs).
 Unlike JAX's script, which restores the whole train state (``restore``),
 this one restores without the optimizer state (``restore_eval``, as
 ``loading.load_detector`` does): the npz reads no optimizer slot, and a run
-converted by ``tools/orbax_to_torch.py`` (which carries none) quantizes too.
+whose checkpoint carries none (converted from a JAX checkpoint saved
+without one) quantizes too.
 ``MMOE_PLATFORM=cpu`` runs on the CPU.
 
     python -m multimodal_moe_torch.cli.quantize_yolo --weights outputs/runs/yolo/<run>

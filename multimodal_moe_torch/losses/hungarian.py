@@ -6,6 +6,13 @@ device with static shapes; the assignment is solved on the host
 (:mod:`..ops.assignment`). Padded GT columns carry a large constant cost and
 are masked out of the loss. Every ``stop_gradient`` of the JAX module is a
 ``.detach()`` here.
+
+Under an active mesh (``parallel.mesh.use_mesh``) each rank holds a slice
+of the global batch, and :func:`detr_loss` returns the global loss, as the
+JAX loss over the global batch is: every layer's numerators (the VFL, L1
+and GIoU sums) and the two counts (``num_gt``, the denoising ``num_pos``)
+are summed over the ranks by one differentiable ``all_reduce``, and the
+counts are clamped to ≥ 1 after it. The match stays per image.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import torch.nn.functional as F
 
 from ..ops.assignment import batched_lsa_assign
 from ..ops.boxes import cxcywh_to_xyxy, elementwise_giou, pairwise_giou
+from ..parallel.mesh import active_mesh
 
 BIG_COST = 1e6
 
@@ -89,22 +97,42 @@ def detr_loss(
         gt_mask.repeat(n_layers, 1),
     ).reshape(n_layers, b, -1)
 
+    # Each layer's numerators (VFL, L1, GIoU), then the denoising layers',
+    # then the counts: one vector, summed over the ranks on a mesh.
+    sums = [_single_layer_sums(ly["pred_logits"], ly["pred_boxes"], gt_cxcywh, gt_mask,
+                               assigned_all[li]) for li, ly in enumerate(layers)]
+    dn_layers = outputs.get("dn_outputs") or []
+    pos = None
+    if dn_layers:
+        pos = _dn_positives(dn_layers[0]["pred_logits"].shape[1], outputs["dn_is_pos"], gt_mask)
+        sums += [_dn_layer_sums(ly["pred_logits"], ly["pred_boxes"], pos, gt_cxcywh, gt_mask)
+                 for ly in dn_layers]
+    num_gt = gt_mask.sum().float()
+    num_pos = pos.sum().float() if pos is not None else torch.zeros_like(num_gt)
+    mesh = active_mesh()
+    if mesh is not None:
+        flat = mesh.all_reduce(torch.stack([t for s in sums for t in s] + [num_gt, num_pos]))
+        sums = [tuple(flat[3 * i:3 * i + 3]) for i in range(len(sums))]
+        num_gt, num_pos = flat[-2], flat[-1]
+    num_fg = num_gt.round().long()
+    num_gt, num_pos = num_gt.clamp_min(1.0), num_pos.clamp_min(1.0)
+
     total = torch.zeros((), device=gt_mask.device)
     metrics: "Dict[str, torch.Tensor]" = {}
-    for li, layer in enumerate(layers):
+    for li in range(n_layers):
         weight = 1.0 if li == n_layers - 1 else aux_weight
-        loss, m = _single_layer_loss(layer["pred_logits"], layer["pred_boxes"], gt_cxcywh,
-                                     gt_mask, assigned_all[li])
-        total = total + weight * loss
+        cls_sum, l1_sum, giou_sum = sums[li]
+        cls_loss, box_loss, giou_loss = cls_sum / num_gt, l1_sum / num_gt, giou_sum / num_gt
+        total = total + weight * (cls_loss + 5.0 * box_loss + 2.0 * giou_loss)
         if li == n_layers - 1:
-            metrics = m
+            metrics = {"cls_loss": cls_loss, "box_loss": box_loss, "giou_loss": giou_loss,
+                       "num_fg": num_fg}
 
-    dn_layers = outputs.get("dn_outputs") or []
     if dn_layers:
         dn_total = torch.zeros((), device=gt_mask.device)
-        for layer in dn_layers:
-            dn_total = dn_total + _dn_layer_loss(layer["pred_logits"], layer["pred_boxes"],
-                                                 outputs["dn_is_pos"], gt_cxcywh, gt_mask)
+        for cls_sum, l1_sum, giou_sum in sums[n_layers:]:
+            dn_total = dn_total + (cls_sum / num_pos + 5.0 * (l1_sum / num_pos)
+                                   + 2.0 * (giou_sum / num_pos))
         dn_total = dn_total / len(dn_layers)
         total = total + dn_total
         metrics["dn_loss"] = dn_total
@@ -128,37 +156,38 @@ def _vfl_cls_loss(pred_logits, iou_target, weight_mask=None):
     return (bce * w).sum()
 
 
-def _dn_layer_loss(pred_logits, pred_boxes, dn_is_pos, gt_cxcywh, gt_mask):
-    """Denoising loss for one decoder layer. Slot = g2·M + j reconstructs
-    GT j = slot % M; even half-groups are positives."""
+def _dn_positives(d_slots: int, dn_is_pos, gt_mask):
+    """(B, D) the positive denoising slots: slot g2·M + j reconstructs GT
+    j = slot % M, and even half-groups are positives."""
+    src = torch.arange(d_slots, device=gt_mask.device) % gt_mask.shape[1]
+    return gt_mask[:, src] & dn_is_pos[None, :]
+
+
+def _dn_layer_sums(pred_logits, pred_boxes, pos, gt_cxcywh, gt_mask):
+    """One denoising layer's numerators (VFL, L1, GIoU), each to be
+    divided by the positives' count."""
     d_slots = pred_logits.shape[1]
-    m = gt_cxcywh.shape[1]
-    src = torch.arange(d_slots, device=pred_logits.device) % m
+    src = torch.arange(d_slots, device=pred_logits.device) % gt_cxcywh.shape[1]
     tgt_boxes = gt_cxcywh[:, src]                                   # (B, D, 4)
     valid = gt_mask[:, src]                                         # (B, D)
-    pos = valid & dn_is_pos[None, :]
-    num_pos = pos.sum().float().clamp_min(1.0)
 
     l1 = (pred_boxes - tgt_boxes).abs().sum(-1)
     giou = elementwise_giou(cxcywh_to_xyxy(pred_boxes.float()), cxcywh_to_xyxy(tgt_boxes.float()))
-    box_loss = (l1 * pos).sum() / num_pos
-    giou_loss = ((1.0 - giou) * pos).sum() / num_pos
     iou_t = giou.clamp(0.0, 1.0).detach() * pos
-    cls_loss = _vfl_cls_loss(pred_logits, iou_t, valid) / num_pos
-    return cls_loss + 5.0 * box_loss + 2.0 * giou_loss
+    return (_vfl_cls_loss(pred_logits, iou_t, valid), (l1 * pos).sum(),
+            ((1.0 - giou) * pos).sum())
 
 
-def _single_layer_loss(pred_logits, pred_boxes, gt_cxcywh, gt_mask, assigned):
+def _single_layer_sums(pred_logits, pred_boxes, gt_cxcywh, gt_mask, assigned):
+    """One matched layer's numerators (VFL, L1, GIoU), each to be divided
+    by the ground truth's count."""
     b, q, _ = pred_logits.shape
     batch_idx = torch.arange(b, device=pred_boxes.device)[:, None]
     matched_boxes = pred_boxes[batch_idx, assigned]                 # (B, M, 4)
-    num_gt = gt_mask.sum().float().clamp_min(1.0)
 
     l1 = (matched_boxes - gt_cxcywh).abs().sum(-1)
     giou = elementwise_giou(cxcywh_to_xyxy(matched_boxes.float()),
                             cxcywh_to_xyxy(gt_cxcywh.float()))
-    box_loss = (l1 * gt_mask).sum() / num_gt
-    giou_loss = ((1.0 - giou) * gt_mask).sum() / num_gt
 
     # IoU-aware targets: a matched query's target is the (detached) IoU of
     # its box; padded columns point at row 0 with IoU 0, and "amax" keeps the
@@ -166,8 +195,5 @@ def _single_layer_loss(pred_logits, pred_boxes, gt_cxcywh, gt_mask, assigned):
     iou_val = giou.clamp(0.0, 1.0).detach() * gt_mask
     iou_q = torch.zeros((b, q), device=pred_logits.device).scatter_reduce(
         1, assigned, iou_val, reduce="amax", include_self=True)
-    cls_loss = _vfl_cls_loss(pred_logits, iou_q) / num_gt
-
-    total = cls_loss + 5.0 * box_loss + 2.0 * giou_loss
-    return total, {"cls_loss": cls_loss, "box_loss": box_loss, "giou_loss": giou_loss,
-                   "num_fg": gt_mask.sum()}
+    return (_vfl_cls_loss(pred_logits, iou_q), (l1 * gt_mask).sum(),
+            ((1.0 - giou) * gt_mask).sum())

@@ -36,6 +36,7 @@ from torch import nn
 
 from ..ops.deformable_kernel import ms_deform_attn_fwd
 from ..ops.nms import stable_topk
+from ..parallel.mesh import active_mesh, batch_slice
 from ..quant import QT, dequantize, q_from_images, quantize_to, record_absmax, register_quant
 from .layers import MLP, CSPStage, ConvBNAct, PlainStage, concat, lecun_normal_, upsample2x
 from .resnet import ResNet
@@ -282,7 +283,10 @@ def build_denoising_queries(
     Per group every GT slot yields a positive query (small jitter) and a
     negative one (large jitter). The uniform draws ``shift_u`` in [−1, 1)
     and ``scale_u`` in [−0.5, 0.5), each ``(B, 2G, M, 2)``, come from
-    ``generator`` unless given (the tests feed JAX's).
+    ``generator`` unless given (the tests feed JAX's). Under an active mesh
+    ``gt_boxes`` is this rank's slice of the global batch: the generator
+    draws for the global batch and this rank takes its rows, so the ranks
+    together draw what one process draws (given draws are this rank's).
 
     Returns ``dn_ref`` (B, D, 4) in [0, 1], ``dn_is_pos`` (D,) bool and the
     attention mask (D+Q, D+Q) bool, True = may attend; D = 2·G·M.
@@ -293,10 +297,15 @@ def build_denoising_queries(
     boxes = gt_boxes[:, None].expand(b, 2 * num_groups, m, 4)       # (B, 2G, M, 4)
     is_pos = torch.arange(2 * num_groups, device=dev) % 2 == 0
     draw_on = generator.device if generator is not None else dev
+    mesh = active_mesh()
+    b_draw, rows = (b * mesh.size, batch_slice(mesh, b * mesh.size)) if mesh is not None else (
+        b, slice(None))
     if shift_u is None:
-        shift_u = torch.rand((b, 2 * num_groups, m, 2), generator=generator, device=draw_on) * 2 - 1
+        shift_u = (torch.rand((b_draw, 2 * num_groups, m, 2), generator=generator,
+                              device=draw_on) * 2 - 1)[rows]
     if scale_u is None:
-        scale_u = torch.rand((b, 2 * num_groups, m, 2), generator=generator, device=draw_on) - 0.5
+        scale_u = (torch.rand((b_draw, 2 * num_groups, m, 2), generator=generator,
+                              device=draw_on) - 0.5)[rows]
     shift_u, scale_u = shift_u.to(dev), scale_u.to(dev) * box_noise_scale
     pos = is_pos[None, :, None, None]
     # positive: shift in (−0.5, 0.5)·wh; negative: ±(0.5, 1.0)·wh
@@ -332,6 +341,10 @@ class RTDETRDetector(nn.Module):
     """
 
     denoising_capable = True  # the trainer passes ground truth and denoising draws
+    # Every batch reduction is global under ``use_mesh``: the BatchNorms
+    # (``FlaxBatchNorm2d``), ``detr_loss``'s sums and counts, and the
+    # denoising draws (drawn for the global batch, sliced).
+    global_batch_reductions = True
 
     def __init__(self, num_classes: int = 1, hidden_dim: int = 256, num_queries: int = 300,
                  num_decoder_layers: int = 6, num_heads: int = 8, num_points: int = 4,

@@ -248,6 +248,16 @@ def broadcast_module(model: nn.Module, mesh: Mesh, src: int = 0) -> nn.Module:
     return model
 
 
+def broadcast_object(obj, mesh: Mesh, src: int = 0):
+    """``obj`` (picklable) of rank ``src`` on every rank of ``mesh``; as
+    it is without process groups."""
+    if mesh.world_group is None:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src, group=mesh.group("world"))
+    return box[0]
+
+
 @torch.no_grad()
 def reduce_gradients(grads: "Dict[str, torch.Tensor]", mesh: Mesh) -> "Dict[str, torch.Tensor]":
     """Each gradient summed once over the ranks that hold its parameter:

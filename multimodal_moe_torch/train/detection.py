@@ -19,7 +19,17 @@ backward ``all_reduce`` sums the ranks' ``1/ranks`` back to 1, so each
 rank's activations get their exact share of ``∂L``), and the gradients are
 summed once: replicated tensors over the world group, ``experts_*`` shards
 over the data group. Only models whose batch reductions are all global
-(``global_batch_reductions``: YOLO, MoE-YOLO) train on more than one rank.
+(``global_batch_reductions``: YOLO, MoE-YOLO, RT-DETR) train on more than
+one rank.
+
+Validation inside ``fit`` on a mesh gives every rank the same metrics, as
+JAX's ``val_fn`` over the whole split on every process does: every rank
+gathers the expert shards of the parameters and the EMA (a collective),
+rank 0 runs ``val_fn`` on the one-process state outside ``use_mesh``, and
+its numeric metrics are broadcast. Each rank evaluating on its own could
+differ in the last bit (cuDNN may pick other algorithms on other cards),
+take another branch at ``best_fitness`` and hang in ``save_best``'s
+barriers.
 """
 
 from __future__ import annotations
@@ -44,6 +54,8 @@ from ..parallel.mesh import (
     barrier,
     batch_slice,
     broadcast_module,
+    broadcast_object,
+    gather_params,
     reduce_gradients,
     shard_module,
     use_mesh,
@@ -100,9 +112,9 @@ class DetectionTrainer:
         if mesh is not None and mesh.size > 1 and not getattr(
                 model, "global_batch_reductions", False):
             raise NotImplementedError(
-                f"{type(model).__name__} does not train on a mesh of {mesh.size} ranks: some "
-                "of its batch reductions would be per rank (RT-DETR: detr_loss's num_pos and "
-                "num_gt, the denoising draws; ROADMAP.md, A6b)")
+                f"{type(model).__name__} does not train on a mesh of {mesh.size} ranks: it "
+                "does not declare global_batch_reductions, so some of its batch reductions "
+                "could be per rank")
         self.device = rank_device(device) if mesh is not None else resolve_device(device)
         self.model = model
         self.cfg = cfg
@@ -158,9 +170,12 @@ class DetectionTrainer:
         if getattr(model, "context_aware", False) and "solar_bin" in batch:
             extra["context_ids"] = batch["solar_bin"]
         if getattr(model, "denoising_capable", False):
+            dn = draws.get("denoise")
+            if mesh is not None and dn is not None:   # the global batch's, this rank's rows
+                rows = batch_slice(mesh, dn[0].shape[0])
+                dn = tuple(d[rows] for d in dn)
             extra.update(gt_boxes=gt_boxes, gt_mask=batch["gt_mask"],
-                         denoise_generator=self._generator(state.step, 1),
-                         dn_draws=draws.get("denoise"))
+                         denoise_generator=self._generator(state.step, 1), dn_draws=dn)
         with use_mesh(mesh):
             outputs = model(images, train=True, **extra)
             total, metrics = self.loss_fn(outputs, batch["gt_labels"], gt_boxes,
@@ -182,6 +197,30 @@ class DetectionTrainer:
                                     mesh=self.mesh)
         return _step_keys(out)
 
+    # -- validation ----------------------------------------------------------
+    def validate(self, val_fn: Callable[[TrainState], dict], state: TrainState) -> dict:
+        """``val_fn(state)``; on a mesh of more than one rank the same
+        numeric metrics on every rank: every rank gathers the expert shards
+        of the parameters, running statistics and EMA (a collective), rank 0
+        evaluates them in a one-process copy of the template and broadcasts
+        the metrics."""
+        mesh = self.mesh
+        if mesh is None or mesh.size == 1:
+            return val_fn(state)
+        full = state
+        if mesh.num_expert > 1:
+            model_sd = gather_params(state.model.state_dict(), mesh)
+            ema = gather_params(state.ema_params, mesh)
+            if mesh.rank == 0:
+                model = copy.deepcopy(self.model).to(self.device)
+                model.load_state_dict(model_sd, strict=True)
+                full = TrainState(step=state.step, model=model.train(state.model.training),
+                                  opt=state.opt, ema_params=ema)
+        metrics = None
+        if mesh.rank == 0:
+            metrics = {k: v for k, v in val_fn(full).items() if isinstance(v, (int, float))}
+        return broadcast_object(metrics, mesh)
+
     # -- loop ----------------------------------------------------------------
     def fit(self, train_loader: Iterable, *, run_dir: "str | Path",
             val_fn: Optional[Callable[[TrainState], dict]] = None, log_every: int = 50,
@@ -195,9 +234,6 @@ class DetectionTrainer:
         # reads the progress file; rank 0 alone writes files and logs. The
         # metrics are global, so every rank takes the same branches.
         is_lead = self.mesh is None or self.mesh.rank == 0
-        if val_fn is not None and self.mesh is not None and self.mesh.size > 1:
-            raise NotImplementedError("validation inside fit on a mesh of more than one rank "
-                                      "is not ported (ROADMAP.md, A6b)")
         shard = (getattr(train_loader, "process_index", 0),
                  getattr(train_loader, "process_count", 1))
         if state is None:
@@ -261,7 +297,7 @@ class DetectionTrainer:
             row = {k: float(np.mean(v)) for k, v in epoch_metrics.items()}
             row["epoch"] = epoch
             if val_fn is not None:
-                val_metrics = val_fn(state)
+                val_metrics = self.validate(val_fn, state)
                 row.update({f"val_{k}": v for k, v in val_metrics.items()
                             if isinstance(v, (int, float))})
                 fit = _fitness(val_metrics)

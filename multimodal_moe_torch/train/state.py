@@ -316,15 +316,18 @@ class CheckpointManager:
         return _tensor_dicts(raw, lambda d: shard_params(d, self.mesh))   # this rank's shards
 
     def restore(self, name: str, target: TrainState) -> TrainState:
-        """The whole state, optimizer included, into ``target``. A checkpoint
-        without optimizer state (one converted from a JAX run dir by
-        ``tools/orbax_to_torch.py``) raises ``ValueError``: it serves and
-        evaluates through :meth:`restore_eval`, but cannot resume training."""
+        """The whole state, optimizer included, into ``target`` (a run dir
+        converted from JAX by ``tools/orbax_to_torch.py`` carries JAX's
+        optimizer state too). A checkpoint without optimizer state (one
+        converted from a JAX checkpoint saved without it) raises
+        ``ValueError``: it serves and evaluates through :meth:`restore_eval`,
+        but cannot resume training."""
         raw = self._load(name)
         if "opt_state" not in raw:
             raise ValueError(
-                f"{self._path(name)} holds no optimizer state (a checkpoint converted by "
-                "tools/orbax_to_torch.py); it cannot resume training, restore_eval reads it")
+                f"{self._path(name)} holds no optimizer state (converted by "
+                "tools/orbax_to_torch.py from a checkpoint without one); it cannot resume "
+                "training, restore_eval reads it")
         target.model.load_state_dict(raw["model"], strict=True)
         target.opt.load_state_dict(raw["opt_state"])
         _copy_into(target.ema_params, raw["ema_params"])

@@ -16,10 +16,13 @@ intra-op threads a rank. Cases:
   the trainer's rule (each rank differentiates ``L / ranks``, gradients
   summed once by ``reduce_gradients``, expert shards gathered); each
   rank's routing as the expert functions receive it.
-* ``train`` -- two ``DetectionTrainer`` steps of YOLO-n on a 2 × 1 mesh
-  over ``train_in.pt``'s global batches; RT-DETR on the mesh raising
-  ``NotImplementedError``; a 2-rank ``fit`` with an early pause and a
-  resume, checkpoints in the one-process layout.
+* ``train`` -- two ``DetectionTrainer`` steps of YOLO-n and two of a tiny
+  RT-DETR (its matcher's costs and assignments recorded) on a 2 × 1 mesh
+  over ``train_in.pt``'s global batches; a model without
+  ``global_batch_reductions`` refused on the mesh (``NotImplementedError``);
+  a 2-rank ``fit`` with an early pause and a resume, checkpoints in the
+  one-process layout; a 2-rank ``fit`` of one epoch validating with
+  ``make_ema_val_fn`` (rank 0 over the whole val split, metrics broadcast).
 * ``remat`` -- one ``DetectionTrainer`` step of YOLO-n on a 2 × 1 mesh over
   ``remat_in.pt``'s global batch, with ``remat=True`` and with
   ``remat=False``: the recompute runs BatchNorm's all-reduce again during
@@ -150,6 +153,48 @@ def yolo_template(seed: int = 0):
     return YoloDetector(num_classes=1, variant="n", generator=torch.Generator().manual_seed(seed))
 
 
+# tests/test_torch_rtdetr_train.py's tiny RT-DETR
+RT_CFG = dict(num_classes=1, hidden_dim=64, num_queries=20, num_decoder_layers=2, num_heads=4,
+              backbone_depths=(1, 1, 1, 1))
+
+
+def rtdetr_template(seed: int = 0):
+    """The tiny RT-DETR, random weights from ``seed``."""
+    from multimodal_moe_torch.models.rtdetr import RTDETRDetector
+
+    return RTDETRDetector(**RT_CFG, generator=torch.Generator().manual_seed(seed))
+
+
+def rtdetr_loss_fn(img_hw):
+    import functools
+
+    from multimodal_moe_torch.models.rtdetr import rtdetr_loss
+
+    return functools.partial(rtdetr_loss, img_hw=img_hw)
+
+
+class AssignmentRecord:
+    """Wraps ``losses.hungarian.batched_lsa_assign``: each call's cost and
+    assigned rows, on the host."""
+
+    def __enter__(self):
+        from multimodal_moe_torch.losses import hungarian
+
+        self.module, self.real, self.calls = hungarian, hungarian.batched_lsa_assign, []
+
+        def assign(cost, col_valid=None):
+            out = self.real(cost, col_valid)
+            self.calls.append({"cost": cost.detach().cpu(), "valid": col_valid.detach().cpu(),
+                               "assigned": out.detach().cpu()})
+            return out
+
+        hungarian.batched_lsa_assign = assign
+        return self
+
+    def __exit__(self, *exc):
+        self.module.batched_lsa_assign = self.real
+
+
 def fit_template(seed: int = 0):
     """MoE-YOLO-n with 2 experts on ``auto`` (``dense`` at the fit's size),
     random weights from ``seed``."""
@@ -180,7 +225,6 @@ class ShardLoader:
 
 def case_train(work: Path, rank: int, world: int) -> dict:
     from multimodal_moe_torch.models.moe_yolo import moe_yolo_loss
-    from multimodal_moe_torch.models.rtdetr import RTDETRDetector
     from multimodal_moe_torch.train.detection import DetectionTrainer, DetTrainConfig
     from multimodal_moe_torch.train.state import CheckpointManager, one_process_state_dict
 
@@ -199,14 +243,30 @@ def case_train(work: Path, rank: int, world: int) -> dict:
         metrics.append({k: float(v) for k, v in m.items()})
     out["yolo"] = {"state": one_process_state_dict(state, mesh), "metrics": metrics}
 
-    # RT-DETR's batch reductions are not global yet: it refuses the mesh.
+    # Two steps of the tiny RT-DETR on the same mesh, its own draws (the
+    # global batch's, this rank's rows) and its matcher recorded.
+    rt_cfg = spec["rt_cfg"]
+    trainer = DetectionTrainer(rtdetr_template(), DetTrainConfig(**rt_cfg), steps_per_epoch=1,
+                               loss_fn=rtdetr_loss_fn((rt_cfg["img_h"], rt_cfg["img_w"])),
+                               mesh=mesh, device=cpu)
+    state = trainer.init_state()
+    metrics = []
+    with AssignmentRecord() as rec:
+        for batch in spec["rt_batches"]:
+            state, m = trainer.train_step(state, trainer._to_device(batch))
+            metrics.append({k: float(v) for k, v in m.items()})
+    out["rtdetr"] = {"state": one_process_state_dict(state, mesh), "metrics": metrics,
+                     "assign": rec.calls}
+
+    # A model that does not declare its batch reductions global is refused.
+    class PerRank(torch.nn.Module):
+        pass
+
     try:
-        DetectionTrainer(RTDETRDetector(hidden_dim=32, num_queries=10, num_decoder_layers=1,
-                                        backbone_depths=(1, 1, 1, 1)),
-                         DetTrainConfig(**spec["cfg"]), mesh=mesh, device=cpu)
-        out["rtdetr_raises"] = None
+        DetectionTrainer(PerRank(), DetTrainConfig(**spec["cfg"]), mesh=mesh, device=cpu)
+        out["per_rank_raises"] = None
     except NotImplementedError as exc:
-        out["rtdetr_raises"] = str(exc)
+        out["per_rank_raises"] = str(exc)
 
     # fit on a 1 × 2 mesh (experts sharded): a pause after one epoch, then
     # the resume, each rank feeding its process shard.
@@ -225,8 +285,9 @@ def case_train(work: Path, rank: int, world: int) -> dict:
                      if not pm.is_expert(k))
     final = one_process_state_dict(state, mesh)
 
-    # A checkpoint without optimizer state (tools/orbax_to_torch.py's form)
-    # read on the mesh: each rank gets its expert rows.
+    # A checkpoint without optimizer state (the converter's output for a JAX
+    # checkpoint saved without one) read on the mesh: each rank gets its
+    # expert rows.
     converted = work / "converted"
     if rank == 0:
         (converted / "last").mkdir(parents=True)
@@ -238,6 +299,17 @@ def case_train(work: Path, rank: int, world: int) -> dict:
     eval_rows_ok = all(torch.equal(p, final["model"][k][rows] if pm.is_expert(k) else
                                    final["model"][k])
                        for k, p in state.model.named_parameters())
+    # One epoch on the same 1 × 2 mesh validating inside fit: every rank
+    # passes the val loader, rank 0 evaluates the gathered EMA.
+    from multimodal_moe_torch.train.evaluator import make_ema_val_fn
+
+    trainer = DetectionTrainer(fit_template(), DetTrainConfig(**{**spec["fit_cfg"], "epochs": 1}),
+                               loss_fn=moe_yolo_loss, mesh=mesh, device=cpu)
+    val_fn = make_ema_val_fn(fit_template(), lambda: iter(spec["val_batches"]))
+    _, val_fit = trainer.fit(loader, run_dir=work / "val_run", val_fn=val_fn, log_every=1)
+    out["val_fit"] = {"history": val_fit["history"],
+                      "best_fitness": val_fit["best_fitness"]}
+
     out["fit"] = {"first": {k: v for k, v in first.items() if k != "train_wall_time_s"},
                   "second": {k: v for k, v in second.items() if k != "train_wall_time_s"},
                   "step_after_pause": step_after_pause, "step": state.step,

@@ -28,7 +28,9 @@ REQUIRED = ("multimodal_moe_torch.losses.hungarian", "multimodal_moe_torch.ops.a
             "multimodal_moe_torch.paths", "multimodal_moe_torch.data.yolo_layout",
             "multimodal_moe_torch.cli.train_yolo", "multimodal_moe_torch.cli.train_moe",
             "multimodal_moe_torch.cli.train_rtdetr", "multimodal_moe_torch.cli.eval_detector",
-            "multimodal_moe_torch.cli.quantize_yolo")
+            "multimodal_moe_torch.cli.quantize_yolo",
+            "multimodal_moe_torch.cli.train_vision_baseline",
+            "multimodal_moe_torch.cli.analyze_moe_routing")
 
 _CHILD = """
 import importlib, pkgutil, sys

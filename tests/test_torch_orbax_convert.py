@@ -18,8 +18,22 @@ init would only cost its compile.
 
 Also: ``best`` and ``last`` with their steps and the ``int8_quant*.npz``
 files carried over unchanged, an unknown or a missing leaf raising, and the
-port's ``CheckpointManager.restore`` refusing the converted checkpoint
-(no optimizer state) while ``restore_eval`` reads it."""
+port's ``CheckpointManager.restore`` refusing a checkpoint converted from
+one saved without optimizer state while ``restore_eval`` reads it.
+
+The optimizer state: an SGD run (YOLO-n) and an AdamW run (the small
+RT-DETR) saved by JAX after two steps of ``TrainState.apply_gradients``
+(JAX's chain and EMA) on seeded gradients, converted, then a third step
+on the same gradients in both packages: the port's ``restore`` of the
+converted ``last`` then ``apply_gradients``, against JAX's. The forward
+and backward are ``tests/test_torch_train_step.py``'s; here the gradients
+are given, so only the carried state (the counts, Adam's ``mu``/``nu`` or
+the momentum ``trace``, through the parameters' leaf mapping) and the
+optimizer's float32 arithmetic can differ: parameters, EMA and optimizer
+slots within 1e-6 of their norm (lr·‖update‖ ≈ 1e-4 of a parameter's
+norm: a lost slot moves them by far more), ``mu``/``nu``/``trace`` after
+the third step within 1e-6 of theirs. A tree whose counts disagree with
+``step``, or that holds an unknown node, raises."""
 
 import importlib.util
 import json
@@ -29,6 +43,7 @@ from types import SimpleNamespace
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -38,7 +53,8 @@ from _torch_parity import (RTDETR_BOX_TOL, RTDETR_LOGIT_TOL, RTDETR_PIXEL_TOL,
 from multimodal_moe_torch import loading as tload
 from multimodal_moe_torch.models.rtdetr import anchors_for
 from multimodal_moe_torch.train.detection import DetectionTrainer, DetTrainConfig
-from multimodal_moe_torch.train.state import CheckpointManager
+from multimodal_moe_torch.convert import flax_to_state_dict
+from multimodal_moe_torch.train.state import CheckpointManager, make_train_state
 from multimodal_moe_tpu import loading as jload
 from multimodal_moe_tpu.train import detection as jdetection
 from multimodal_moe_tpu.train.state import CheckpointManager as JaxCheckpointManager
@@ -141,10 +157,12 @@ def write_jax_run(root: Path, cfg: dict, seed: int = 0, names=("best", "last"),
     rng = np.random.default_rng(seed + 50)
     params = variables["params"]
     stats = perturbed(variables["batch_stats"], rng, 0.05)
-    opt_state = make_optimizer().init(params)
     ckpt = JaxCheckpointManager(run / "weights")
     for name in names:
         p = params if name == "best" else jax.tree.map(lambda a: np.asarray(a) * 0.5, params)
+        # an SGD state whose counts are the step, as a run's are
+        opt_state = optax.tree_utils.tree_set(make_optimizer().init(p), count=jnp.asarray(
+            STEPS[name], jnp.int32))
         ckpt.save(name, TrainState(step=jnp.asarray(STEPS[name], jnp.int32), params=p,
                                    batch_stats=stats, opt_state=opt_state,
                                    ema_params=perturbed(p, rng, 0.1)))
@@ -262,7 +280,9 @@ def test_best_last_config_and_npz_carried_over(runs):
             for n in ("best", "last")}
     kernel = np.asarray(r.variables["params"]["head"]["cls0_pred"]["kernel"]).transpose(3, 2, 0, 1)
     for name, raw in raws.items():
-        assert set(raw) == {"step", "model", "ema_params"} and raw["step"] == STEPS[name]
+        assert set(raw) == {"step", "model", "ema_params", "opt_state"}
+        assert raw["step"] == STEPS[name] and raw["opt_state"]["count"] == STEPS[name]
+        assert set(raw["opt_state"]) == {"count", "trace"}
         scale = 1.0 if name == "best" else 0.5
         np.testing.assert_array_equal(raw["model"]["head.cls0_pred.weight"].numpy(),
                                       (kernel * np.float32(scale)))
@@ -325,18 +345,143 @@ def test_unknown_or_missing_leaf_raises(runs, yolo_raw, edit, error, match):
                                            CONFIGS["yolo"])
 
 
-def test_restore_refuses_converted_checkpoint(runs):
+def test_restore_refuses_converted_checkpoint(runs, yolo_raw, tmp_path):
+    """A JAX checkpoint saved without ``opt_state`` converts without it:
+    ``restore`` refuses it, ``restore_eval`` reads it. The run's own
+    ``best`` (with its SGD state) restores."""
+    import orbax.checkpoint as ocp
+
     r = runs("yolo")
     _, template = tload.build_detector(CONFIGS["yolo"])
     trainer = DetectionTrainer(template, DetTrainConfig(variant="n", img_h=H, img_w=W),
                                steps_per_epoch=1, device="cpu")
-    manager = CheckpointManager(r.prun / "weights")
+    without = {k: v for k, v in yolo_raw.items() if k != "opt_state"}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ocp.StandardCheckpointer, "restore", lambda self, *a, **k: without)
+        out = load_tool().convert_run(r.jrun, tmp_path / "port")
+    assert [p.name for p in out] == ["best", "last"]
+    manager = CheckpointManager(tmp_path / "port" / "weights")
     with pytest.raises(ValueError, match="orbax_to_torch"):
         manager.restore("best", trainer.init_state())
     state = manager.restore_eval("best", trainer.init_state())
-    raw = torch.load(r.prun / "weights" / "best" / CheckpointManager.FILE, weights_only=True)
+    raw = torch.load(tmp_path / "port" / "weights" / "best" / CheckpointManager.FILE,
+                     weights_only=True)
+    assert "opt_state" not in raw
     for name, t in raw["ema_params"].items():
         assert torch.equal(state.ema_params[name], t), name
+    state = CheckpointManager(r.prun / "weights").restore("best", trainer.init_state())
+    assert state.step == STEPS["best"] and state.opt.state["count"] == STEPS["best"]
+
+
+# -- the optimizer state of a converted run ---------------------------------
+
+RESUME = {  # family → the optimizer of its training script, warmup 2 of 8 steps
+    "yolo": dict(optimizer="sgd", lr0=0.01, lrf=0.01, weight_decay=5e-4),
+    "rtdetr": dict(optimizer="adamw", lr0=1e-4, lrf=1.0, weight_decay=1e-4),
+}
+
+
+def seeded_grads(params, seed: int):
+    """A gradient tree of ``params``' shapes (its global norm ≈ 3, under the
+    clip of 10 at YOLO-n's size and over it at none)."""
+    rng = np.random.default_rng(seed)
+    leaves = jax.tree.leaves(params)
+    n = sum(np.size(a) for a in leaves)
+    return jax.tree.map(lambda a: (rng.normal(size=np.shape(a)) * 3 / np.sqrt(n)).astype(
+        np.float32), params)
+
+
+@pytest.fixture(scope="module")
+def resumed(runs, tmp_path_factory):
+    """Per family: JAX's state after three steps from the variables of
+    ``runs``' ``best``, the port's after its ``restore`` of the converted
+    two-step ``last`` and the third step."""
+    cache = {}
+
+    def get(family):
+        if family in cache:
+            return cache[family]
+        cfg, opt = CONFIGS[family], RESUME[family]
+        root = tmp_path_factory.mktemp(f"resume_{family}")
+        run = root / "jax"
+        (run / "weights").mkdir(parents=True)
+        (run / "model_config.json").write_text(json.dumps(cfg))
+        variables = runs(family).variables
+        tx = make_optimizer(momentum=0.937, warmup_steps=2, total_steps=8, **opt)
+        params = jax.tree.map(jnp.asarray, variables["params"])
+        stats = jax.tree.map(jnp.asarray, variables["batch_stats"])
+        state = TrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
+                           opt_state=tx.init(params), ema_params=params)
+        grads = [seeded_grads(variables["params"], seed=30 + i) for i in range(3)]
+        step = jax.jit(lambda st, g: st.apply_gradients(g, tx, stats))   # eager: 50 s a step
+        for g in grads[:2]:
+            state = step(state, g)
+        JaxCheckpointManager(run / "weights").save("last", state)
+        load_tool().convert_run(run, root / "port")
+        after = jax.device_get(step(state, grads[2]))
+
+        _, model = tload.build_detector(cfg)
+        port = make_train_state(model.train(), momentum=0.937, warmup_steps=2, total_steps=8,
+                                **opt)
+        CheckpointManager(root / "port" / "weights").restore("last", port)
+        restored = {"step": port.step, "count": port.opt.state["count"]}
+        port.apply_gradients(flax_to_state_dict({"params": grads[2]}))
+        cache[family] = SimpleNamespace(jax=after, port=port, restored=restored, run=run,
+                                        raw_dir=run / "weights" / "last")
+        return cache[family]
+
+    return get
+
+
+def _assert_close_in_norm(got: "dict[str, torch.Tensor]", want: "dict[str, torch.Tensor]",
+                          what: str):
+    assert set(got) == set(want), what
+    for k, w in want.items():
+        g = got[k].detach().float()
+        assert (g - w).norm() <= 1e-6 * w.norm() + 1e-12, (what, k, float((g - w).norm()),
+                                                           float(w.norm()))
+
+
+@pytest.mark.parametrize("family", list(RESUME))
+def test_converted_run_resumes_as_jax(resumed, family):
+    r = resumed(family)
+    assert r.restored == {"step": 2, "count": 2}
+    assert r.port.step == int(r.jax.step) == 3 and r.port.opt.state["count"] == 3
+    _assert_close_in_norm(r.port.params, flax_to_state_dict({"params": r.jax.params}), "params")
+    _assert_close_in_norm(r.port.ema_params, flax_to_state_dict({"params": r.jax.ema_params}),
+                          "ema")
+    if RESUME[family]["optimizer"] == "adamw":
+        adam = r.jax.opt_state[1][0]
+        slots = {"mu": adam.mu, "nu": adam.nu}
+    else:
+        slots = {"trace": r.jax.opt_state[2][0].trace}
+    assert set(r.port.opt.state) == {"count", *slots}
+    for key, tree in slots.items():
+        _assert_close_in_norm(r.port.opt.state[key], flax_to_state_dict({"params": tree}), key)
+
+
+def _count_off(opt):
+    """The schedule's count (SGD: ``[clip, decay, [trace, schedule]]``) one off."""
+    sgd = list(opt[2])
+    sgd[1] = {"count": np.asarray(1, np.int32)}
+    return [opt[0], opt[1], sgd]
+
+
+def _unknown_node(opt):
+    return [*opt, {"scale": np.ones((), np.float32)}]
+
+
+@pytest.mark.parametrize("edit,match", [(_count_off, "disagree with step"),
+                                        (_unknown_node, "unknown optimizer state node")],
+                         ids=["count", "node"])
+def test_optimizer_state_that_does_not_fit_raises(resumed, edit, match):
+    import orbax.checkpoint as ocp
+
+    r = resumed("yolo")
+    raw = ocp.StandardCheckpointer().restore(r.raw_dir.resolve())
+    with pytest.raises(ValueError, match=match):
+        load_tool().optimizer_state(edit(raw["opt_state"]), 2,
+                                    [k for k, _ in r.port.model.named_parameters()])
 
 
 def test_tool_main_prints_each_checkpoint(runs, tmp_path, capsys):

@@ -12,11 +12,14 @@ train split's eight frames make four calibration batches).
   1e-5 relative (``calibrate``'s tolerance in tests/test_torch_quant.py,
   whose fold and tree from JAX's own statistics are bitwise). A second
   ``--int8`` reuses the npz; ``metrics.json`` says ``quantization``.
-* ``quantize_yolo`` on the converted run, which holds no optimizer state
-  (``restore_eval``, where JAX's script calls ``restore``): its npz bitwise
-  the eval CLI's (the same calibration batches).
+* ``quantize_yolo`` on a copy of the converted run whose checkpoint holds
+  no optimizer state (``restore_eval``, where JAX's script calls
+  ``restore``): its npz bitwise the eval CLI's (the same calibration
+  batches).
 
 Torch runs two intra-op threads; the child has a timeout."""
+
+import shutil
 
 import numpy as np
 import pytest
@@ -76,11 +79,19 @@ def test_int8_npz_matches_jax_quantize(runs, monkeypatch, capsys):
 
 
 def test_quantize_converted_run(runs, monkeypatch, capsys, tmp_path):
+    """The converted run carries JAX's optimizer state; a copy of it whose
+    checkpoint has none (``restore`` would refuse it) quantizes all the
+    same: ``quantize_yolo`` reads the weights by ``restore_eval``."""
     prun = runs["port"]["yolo"]
     raw = torch.load(prun / "weights" / "best" / "state.pt", weights_only=False)
-    assert "opt_state" not in raw   # the converter carries none: restore would refuse it
+    assert "opt_state" in raw
+    bare = tmp_path / "bare"
+    (bare / "weights" / "best").mkdir(parents=True)
+    shutil.copyfile(prun / "model_config.json", bare / "model_config.json")
+    torch.save({k: v for k, v in raw.items() if k != "opt_state"},
+               bare / "weights" / "best" / "state.pt")
     out = tmp_path / "q.npz"
-    port_cli(monkeypatch, runs, "quantize_yolo", "--weights", str(prun), "--out", str(out))
+    port_cli(monkeypatch, runs, "quantize_yolo", "--weights", str(bare), "--out", str(out))
     assert "Calibrated on 4 batches @ 64x128;" in capsys.readouterr().out
     cached = prun / "weights" / "int8_quant_best.npz"
     if not cached.exists():   # the --int8 test above writes it; alone, write it here

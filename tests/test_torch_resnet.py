@@ -42,7 +42,7 @@ def test_resnet50_names_load_strictly():
     shapes = jax.eval_shape(
         lambda: jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)), train=False))
     variables = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
-    tmodel = load_flax(tr.resnet50(), variables)
+    tmodel = load_flax(tr.resnet50(num_classes=None, vd=True), variables)
     assert tmodel.out_channels == [256, 512, 1024, 2048]
     assert len([n for n in tmodel.state_dict() if n.endswith("Conv_0.weight")]) == 3 + 16 * 3 + 4
 

@@ -13,7 +13,8 @@ package's scripts.
   with ``--resume`` (``fit_progress.json`` at epoch 0, then 1);
   ``train_yolo --data-yaml --remat`` on a layout exported by JAX's
   ``export_yolo_split``; ``train_moe --resident`` MoE-YOLO-n with two
-  experts as a child process on a pre-resized corpus
+  experts as a child process on a pre-resized corpus, and on two gloo
+  ranks (rank 0 validates over the whole val split)
   (``tests/_torch_data.py``); ``train_rtdetr`` with a 32-wide, 10-query,
   one-layer decoder and trunk depths (1, 1, 1, 1) (the flags give no
   depth: the constructor is patched), whose validation runs no NMS.
@@ -261,6 +262,26 @@ def test_moe_resident_as_a_child(data):
     assert config["effective_dispatch_at_train_batch"] == {"P3": "dense", "P4": "dense",
                                                            "P5": "dense"}
     assert "moe_aux_loss" in json.loads((project / "moe" / "train_metrics.json").read_text())
+
+
+def test_moe_resident_on_two_ranks_validates_the_whole_split(data):
+    """``train_moe --resident`` on two gloo ranks: each rank keeps its shard
+    of the train split resident, and rank 0 validates over every val frame
+    (the resident val loader is not sharded), so every rank's history
+    counts the whole split."""
+    from multimodal_moe_torch.parallel.distributed import run_ranks
+
+    corpus = write_corpus(data["root"] / "presized2", 8, seed=4)
+    n_val = len(corpus["val"].read_text().split()) - 1
+    project = data["root"] / "port2"
+    run_ranks([sys.executable, "-m", "multimodal_moe_torch.cli.train_moe",
+               *_data_args(corpus["parquet"], corpus["root"], project, "moe", "--variant", "n",
+                           "--num-experts", "2", "--epochs", "1", "--resident",
+                           "--max-boxes", "3")],
+              2, env=_env(1), timeout=CHILD_TIMEOUT, cwd=REPO)
+    history = json.loads((project / "moe" / "fit_progress.json").read_text())["history"]
+    assert n_val == 3 and history[-1]["val_n_images"] == n_val
+    _assert_run_dir(project / "moe")
 
 
 def test_rtdetr_validates_without_nms(data, monkeypatch):

@@ -15,10 +15,20 @@ written in the layout of the port's ``CheckpointManager``
 (``weights/<name>/state.pt``), beside a copy of ``model_config.json`` and of
 any ``int8_quant*.npz`` (the port reads JAX's npz files as they are).
 
-The optimizer state is not converted: the converted checkpoint serves,
-evaluates and predicts (``loading.load_detector`` reads it through
-``restore_eval``), and the port's ``CheckpointManager.restore``, which a
-resumed training run needs, refuses it.
+The optimizer state becomes the port's ``Optimizer.state``
+(:func:`optimizer_state`), so a converted run resumes (``--resume``, the
+port's ``CheckpointManager.restore``). JAX's chain
+(``multimodal_moe_tpu/train/state.py:make_optimizer``) is
+``clip_by_global_norm`` (empty), then ``add_decayed_weights`` +
+``sgd(nesterov)`` (a ``TraceState``) or ``adamw`` (``ScaleByAdamState``:
+``count``, ``mu``, ``nu``), then the schedule's ``ScaleByScheduleState``
+(``count``); Orbax restores its tuples as lists, its named tuples as dicts
+and the empty states as None. ``mu``, ``nu`` and ``trace`` take their
+parameters' leaf mapping (HWIO → OIHW, ``Dense`` kernels transposed, the
+MoE's raw leaves as they are); every ``count`` must equal ``step``, and a
+node the walk does not know, or a leaf it cannot place, raises. A
+checkpoint saved without ``opt_state`` converts without it, and then only
+serves and evaluates (``restore_eval``).
 
 This tool imports both packages, so it runs where the JAX package runs
 (Flax and Orbax installed); the converted run dir is then carried to the
@@ -39,9 +49,70 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 CHECKPOINTS = ("best", "last")
 
 
+OPT_SLOTS = {"mu": "adamw", "nu": "adamw", "trace": "sgd"}
+
+
+def optimizer_state(opt_state, step: int, param_names) -> dict:
+    """Orbax's raw ``opt_state`` of JAX's chain → the port's
+    ``Optimizer.state`` (``{"count", "mu", "nu"}`` for AdamW, ``{"count",
+    "trace"}`` for SGD), keyed by the torch names ``param_names``."""
+    import numpy as np
+
+    from multimodal_moe_torch.convert import flax_to_state_dict
+
+    counts, slots = [], {}
+
+    def walk(node, path):
+        if node is None:                         # optax's EmptyState
+            return
+        if hasattr(node, "_asdict"):             # a named tuple, before Orbax
+            node = node._asdict()
+        if isinstance(node, dict):
+            for key, value in node.items():
+                where = path + (str(key),)
+                if key == "count":
+                    if np.ndim(value) != 0:
+                        raise ValueError(f"opt_state {'/'.join(where)} is not a scalar")
+                    counts.append(("/".join(where), int(np.asarray(value))))
+                elif key in OPT_SLOTS:
+                    if key in slots:
+                        raise ValueError(f"opt_state holds two {key!r} trees")
+                    slots[key] = value
+                elif key == "inner_state":       # MaskedState
+                    walk(value, where)
+                else:
+                    raise ValueError(f"unknown optimizer state node {'/'.join(where)}")
+        elif isinstance(node, (list, tuple)):
+            for i, value in enumerate(node):
+                walk(value, path + (str(i),))
+        else:
+            raise ValueError(f"optimizer state leaf {'/'.join(path) or '<root>'} has no place "
+                             f"in the port's state ({type(node).__name__})")
+
+    walk(opt_state, ())
+    kinds = {OPT_SLOTS[k] for k in slots}
+    if len(kinds) != 1 or (kinds == {"adamw"} and set(slots) != {"mu", "nu"}):
+        raise ValueError(f"opt_state holds {sorted(slots)}: neither AdamW (mu, nu) nor SGD (trace)")
+    if not counts:
+        raise ValueError("opt_state holds no count")
+    wrong = [(where, c) for where, c in counts if c != step]
+    if wrong:
+        raise ValueError(f"opt_state counts {wrong} disagree with step {step}")
+    state = {"count": step}
+    names = set(param_names)
+    for key, tree in slots.items():
+        sd = {k: v.float() for k, v in flax_to_state_dict({"params": tree}).items()}
+        if set(sd) != names:
+            raise ValueError(f"opt_state {key!r} leaves differ from the parameters: missing "
+                             f"{sorted(names - set(sd))[:5]}, unknown {sorted(set(sd) - names)[:5]}")
+        state[key] = sd
+    return state
+
+
 def convert_checkpoint(ckpt: Path, model_cfg: dict) -> dict:
     """One Orbax checkpoint → the port's checkpoint dict (``step``,
-    ``model``, ``ema_params``; no ``opt_state``)."""
+    ``model``, ``ema_params`` and, where the checkpoint has one,
+    ``opt_state``)."""
     import numpy as np
     import orbax.checkpoint as ocp
 
@@ -56,8 +127,11 @@ def convert_checkpoint(ckpt: Path, model_cfg: dict) -> dict:
     # the EMA into copies of the parameters, as restore_eval will load it
     ema = {k: p.detach().clone() for k, p in model.named_parameters()}
     _copy_into(ema, flax_to_state_dict({"params": raw["ema_params"]}))
-    return {"step": int(np.asarray(raw["step"])), "model": model.state_dict(),
-            "ema_params": ema}
+    step = int(np.asarray(raw["step"]))
+    out = {"step": step, "model": model.state_dict(), "ema_params": ema}
+    if raw.get("opt_state") is not None:
+        out["opt_state"] = optimizer_state(raw["opt_state"], step, ema)
+    return out
 
 
 def convert_run(weights: Path, out: Path) -> "list[Path]":
