@@ -361,6 +361,32 @@ Phases (each prints one JSON line):
                run their module as ``python -m`` does (``runpy``) and print
                their kernel counts at exit; each has a timeout; wall seconds
                per run.
+23. ingest  -- the port's ingestion chain on this host, then the port's
+               entry points on what it wrote, every step a child as in
+               ``cli``: (a) ``build_synth_corpus --frames 160 --seed 49``
+               at the protocol geometry (3848x2168 frames rendered at
+               1924x1084, resized to 1248x704, 8 index workers): each
+               stage's wall seconds and seconds a frame (render, index,
+               boxes, solar bins, splits), the bytes on disk; the splits
+               128 / 16 / 16, disjoint, covering every indexed frame, every
+               frame's ``solar_context_bin`` the bin of its elevation;
+               ``analyze_index_qa`` passing with no parallel-array or
+               occlusion fault; ``analyze_context_frequencies`` (its plot
+               written or skipped); (b) ``export_yolo_dataset`` and
+               ``export_coco_dataset``: each frame's label lines the boxes
+               the unclear policy keeps, as many COCO annotations, every
+               image symlink resolving; (c) ``train_yolo --data-yaml`` on
+               the YOLO export, one epoch (8 steps of B=16 at 704x1248,
+               fp32), validating on its val split: a finite loss, every
+               run-dir file, B1 once a validation batch; (d) ``train_moe``
+               (MoE-YOLO-s, E=4, k=2, capacity factor 1.25, ``auto``) one
+               epoch on the built parquet and splits: the same checks, and
+               the solar ids that the child's training forwards hand the
+               routers, counted over the epoch, those of the parquet's
+               column on the train split; (e)
+               ``eval_detector`` on (d)'s run over the test split: B1 once a
+               batch, ``metrics.json``'s keys the ``cli`` phase's. Also
+               whether sklearn, tqdm, matplotlib and tabulate import here.
 
 """
 
@@ -383,6 +409,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -5281,16 +5308,36 @@ CLI_RUN_FILES = {"model_config.json", "fit_progress.json", "train_summary.json",
                  "train_summary.csv", "train_metrics.json", "run_metadata.json",
                  "run_metadata.csv", "weights"}
 # A child runs the CLI module as ``python -m`` does and prints the kernels'
-# launch counts at exit (each process counts from 0).
+# launch counts at exit (each process counts from 0). ``gmm`` counts the
+# forward and the transposed product; ``gmm_transposed`` counts the
+# transposed alone. With ``CHIP_SMOKE_CONTEXT_IDS`` set it also prints the
+# context ids that each training forward of MoE-YOLO hands its routers.
 COUNTING_MAIN = """
-import atexit, json, runpy, sys
+import atexit, json, os, runpy, sys
 from multimodal_moe_torch.ops import deformable_kernel, gmm_kernel, moe_kernels, nms_kernel
+transposed, gmm = [0], gmm_kernel.gmm
+def counting_gmm(lhs, rhs, group_sizes, transpose_rhs=False):
+    before = gmm_kernel.gmm_launches
+    out = gmm(lhs, rhs, group_sizes, transpose_rhs)
+    transposed[0] += (gmm_kernel.gmm_launches - before) if transpose_rhs else 0
+    return out
+gmm_kernel.gmm = counting_gmm
 atexit.register(lambda: print("[launches] " + json.dumps({
     "nms_keep": nms_kernel.nms_keep_launches,
     "ms_deform_fwd": deformable_kernel.ms_deform_fwd_launches,
     "ms_deform_bwd": deformable_kernel.ms_deform_bwd_launches,
     "moe_ffn_fwd": moe_kernels.moe_ffn_fwd_launches,
-    "gmm": gmm_kernel.gmm_launches, "tgmm": gmm_kernel.tgmm_launches}), flush=True))
+    "gmm": gmm_kernel.gmm_launches, "gmm_transposed": transposed[0],
+    "tgmm": gmm_kernel.tgmm_launches}), flush=True))
+if os.environ.get("CHIP_SMOKE_CONTEXT_IDS"):
+    from multimodal_moe_torch.models.moe_yolo import MoEYoloDetector
+    seen, forward = [], MoEYoloDetector.forward
+    def recording_forward(self, images, train=False, context_ids=None):
+        if train and context_ids is not None:
+            seen.extend(context_ids.tolist())
+        return forward(self, images, train=train, context_ids=context_ids)
+    MoEYoloDetector.forward = recording_forward
+    atexit.register(lambda: print("[context_ids] " + json.dumps(seen), flush=True))
 sys.argv = sys.argv[1:]
 runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
 """
@@ -5529,6 +5576,234 @@ def phase_cli(dev, smi: str, evaluate_keys: set) -> dict:
     return rec
 
 
+# --------------------------------------------------------------------------
+# Phase 23: ingest -- the port's ingestion chain, then training and
+# evaluation on the corpus it built
+# --------------------------------------------------------------------------
+
+INGEST_FRAMES = 160   # cut: the protocol corpus has 5,000 (build_synth_corpus's default)
+# The first seed from 0 whose 160-frame corpus splits: at most seeds (seed
+# 0 among them: one "0_twilight" frame) a stratum of a small corpus has a
+# single frame, or too few for the 50/50 second split, and both packages'
+# splits raise, as sklearn does.
+INGEST_SEED = 49
+INGEST_WORKERS = 8    # build_synth_corpus --workers (its default)
+INGEST_HOST_PACKAGES = ("sklearn", "tqdm", "matplotlib", "tabulate")
+INGEST_STAGES = ("render", "index", "boxes", "solar_bins", "splits")
+
+
+def ingest_split_sizes(n: int) -> dict:
+    """sklearn's sizes of the two-stage split: ``ceil(0.2 n)`` held out,
+    then half of those (rounded up) to test."""
+    held = -(-n // 5)
+    test = -(-held // 2)
+    return {"train": n - held, "val": held - test, "test": test}
+
+
+def kept_boxes(row) -> int:
+    """The boxes of a row that the exporters keep under their default
+    ``exclude_unclear`` policy: the i-th box where the i-th unclear flag is
+    false or missing."""
+    unclear = list(row["ped_unclear_list"]) if row["ped_unclear_list"] is not None else []
+    return sum(1 for i in range(len(row["xyxy_bboxes"])) if not (i < len(unclear) and unclear[i]))
+
+
+def dir_bytes(root: Path) -> int:
+    return sum(p.stat().st_size for p in root.rglob("*") if p.is_file() and not p.is_symlink())
+
+
+def symlinks_resolve(images: Path) -> "tuple[int, int]":
+    links = list(images.rglob("*.jpg"))
+    return len(links), sum(1 for p in links if p.is_symlink() and p.resolve().is_file())
+
+
+def phase_ingest(smi: str, evaluate_keys: set, cli_extra_keys: list) -> dict:
+    """The port's ingestion CLIs on this host, then ``train_yolo``,
+    ``train_moe`` and ``eval_detector`` on what they wrote, each a child."""
+    import importlib.util
+
+    import pandas as pd
+
+    from multimodal_moe_torch.data.solar import SOLAR_BIN_TO_ID, solar_bin_labels
+
+    t0 = time.perf_counter()
+    sizes = ingest_split_sizes(INGEST_FRAMES)
+    rec = {"phase": "ingest", "gpu": smi, "frames": INGEST_FRAMES, "seed": INGEST_SEED,
+           "workers": INGEST_WORKERS, "img_hw": [IMG_H, IMG_W], "batch": YOLO_B,
+           "split_sizes": sizes,
+           "host_packages": {m: importlib.util.find_spec(m) is not None
+                             for m in INGEST_HOST_PACKAGES}}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        corpus = root / "corpus"
+        env = {"EVAL_DIR": str(root / "eval")}
+
+        # (a) build: tree -> index with resized JPEGs -> boxes -> solar bins -> splits.
+        build, log = run_cli_child("multimodal_moe_torch.cli.build_synth_corpus",
+                                   ["--root", corpus, "--frames", INGEST_FRAMES,
+                                    "--seed", INGEST_SEED, "--workers", INGEST_WORKERS], env)
+        check_child(build, "build_synth_corpus")
+        stages = json.loads(next(line for line in log.splitlines()
+                                 if line.startswith("[stages] "))[len("[stages] "):])["seconds"]
+        summary = json.loads((corpus / "corpus_build_summary.json").read_text())
+        final = Path(summary["final_parquet"])
+        splits_dir = corpus / "splits"
+        df = pd.read_parquet(final)
+        ids = {k: pd.read_csv(splits_dir / f"{k}_ids.csv", dtype=str)["frame_id"].tolist()
+               for k in sizes}
+        rec["build"] = {
+            **build, "stage_s": stages,
+            "stage_s_per_frame": {k: v / INGEST_FRAMES for k, v in stages.items()},
+            "bytes": {d: dir_bytes(corpus / d) for d in ("raw", "resized_images", "outputs",
+                                                         "splits")},
+            "split_sizes": summary["split_sizes"],
+            "solar_bins": df["solar_context_bin"].value_counts().to_dict(),
+            "boxes": int(df["xyxy_bboxes"].map(len).sum())}
+        check(set(stages) == set(INGEST_STAGES), f"stages {stages}")
+        check(summary["split_sizes"] == sizes and {k: len(v) for k, v in ids.items()} == sizes,
+              f"split sizes {summary['split_sizes']}, expected {sizes}")
+        check(len(df) == INGEST_FRAMES and not (set(ids["train"]) & set(ids["val"]))
+              and not (set(ids["train"]) & set(ids["test"])) and not (set(ids["val"]) & set(ids["test"]))
+              and set(ids["train"]) | set(ids["val"]) | set(ids["test"]) == set(df["frame_id"]),
+              "the splits are disjoint and cover every indexed frame")
+        labels = df["solar_context_bin"]
+        check(bool(labels.notna().all()) and set(labels) <= set(SOLAR_BIN_TO_ID)
+              and labels.tolist() == solar_bin_labels(df["solar_angle_elevation"]).tolist()
+              and labels.nunique() >= 3, f"solar bins {rec['build']['solar_bins']}")
+
+        # QA and context frequencies over the final parquet.
+        qa_run, _ = run_cli_child("multimodal_moe_torch.cli.analyze_index_qa",
+                                  ["--parquet", final, "--out-dir", root / "qa"], env)
+        check_child(qa_run, "analyze_index_qa")
+        report = json.loads((root / "qa" / "qa_report.json").read_text())
+        freq, freq_log = run_cli_child("multimodal_moe_torch.cli.analyze_context_frequencies",
+                                       ["--parquet", final, "--out-dir", root / "ctx"], env)
+        check_child(freq, "analyze_context_frequencies")
+        rec["qa"] = {**qa_run, "parallel_array_violations": report["parallel_array_violations"],
+                     "occlusion_mismatched_frames": report["occlusion"]["n_mismatched_frames"],
+                     "n_boxes": report["bboxes"]["n_boxes"],
+                     "height_px_p50": report["bboxes"]["height_px"]["p50"]}
+        rec["context_frequencies"] = {
+            **freq, "plot": "written" if (root / "ctx" / "context_field_frequencies.png").exists()
+            else ("skipped" if "skipped plot" in freq_log else None)}
+        check(report["parallel_array_violations"] == 0
+              and report["occlusion"]["n_mismatched_frames"] == 0, f"QA {rec['qa']}")
+        check((root / "ctx" / "context_field_frequencies.csv").exists()
+              and rec["context_frequencies"]["plot"] is not None, "context frequencies")
+
+        # (b) the YOLO and COCO exports.
+        yolo_dir, coco_dir = root / "exports" / "yolo", root / "exports" / "coco"
+        common = ["--parquet", final, "--splits-dir", splits_dir]
+        ey, _ = run_cli_child("multimodal_moe_torch.cli.export_yolo_dataset",
+                              [*common, "--out-dir", yolo_dir], env)
+        check_child(ey, "export_yolo_dataset")
+        ec, _ = run_cli_child("multimodal_moe_torch.cli.export_coco_dataset",
+                              [*common, "--out-dir", coco_dir], env)
+        check_child(ec, "export_coco_dataset")
+        by_id = df.set_index("frame_id")
+        want_lines, got_lines, mismatched, n_ann = 0, 0, [], 0
+        for split, frame_ids in ids.items():
+            for fid in frame_ids:
+                want = kept_boxes(by_id.loc[fid])
+                lines = (yolo_dir / "labels" / split / f"{fid}.txt").read_text().splitlines()
+                ok = len(lines) == want and all(
+                    len(v) == 5 and v[0] == "0" and all(0.0 <= float(x) <= 1.0 for x in v[1:])
+                    for v in (line.split() for line in lines))
+                if not ok:
+                    mismatched.append(fid)
+                want_lines += want
+                got_lines += len(lines)
+            n_ann += len(json.loads((coco_dir / "annotations" / f"instances_{split}.json")
+                                    .read_text())["annotations"])
+        links = {name: symlinks_resolve(d / "images") for name, d in (("yolo", yolo_dir),
+                                                                       ("coco", coco_dir))}
+        manifest = json.loads((coco_dir / "export_manifest.json").read_text())
+        rec["export"] = {"yolo": ey, "coco": ec, "label_lines": got_lines,
+                         "kept_boxes": want_lines, "coco_annotations": n_ann,
+                         "symlinks": links, "mismatched_frames": mismatched[:10],
+                         "coco_images": sum(s["n_images_written"] for s in manifest["splits"])}
+        check(not mismatched and got_lines == want_lines > 0, f"labels {rec['export']}")
+        check(n_ann == want_lines, f"COCO annotations {n_ann} against {want_lines} kept boxes")
+        check(all(v == (INGEST_FRAMES, INGEST_FRAMES) for v in links.values())
+              and rec["export"]["coco_images"] == INGEST_FRAMES, f"image symlinks {links}")
+
+        runs = root / "runs"
+        dims = ["--img-h", IMG_H, "--img-w", IMG_W]
+        val_batches = -(-sizes["val"] // YOLO_B)
+        test_batches = -(-sizes["test"] // YOLO_B)
+
+        # (c) train_yolo on the YOLO export, validating on its val split.
+        yolo, _ = run_cli_child("multimodal_moe_torch.cli.train_yolo",
+                                ["--data-yaml", yolo_dir / "dataset.yaml", "--epochs", 1,
+                                 "--project", runs, "--name", "yolo", *dims], env)
+        check_child(yolo, "train_yolo --data-yaml")
+        rec["train_yolo"] = {**yolo, **run_summary(runs / "yolo"),
+                             "steps": sizes["train"] // YOLO_B}
+        check(np.isfinite(rec["train_yolo"]["loss"]) and rec["train_yolo"]["files_ok"],
+              f"train_yolo: {rec['train_yolo']}")
+        check(yolo["launches"]["nms_keep"] == val_batches, f"train_yolo B1 {yolo['launches']}")
+
+        # (d) train_moe on the port's parquet and splits: over the epoch the
+        # child's routers get, frame for frame, the solar bin ids of the
+        # port's column on the train split (its whole train split when the
+        # batch divides it, as 128 / 16 does; the loader drops a last partial
+        # batch).
+        moe, moe_log = run_cli_child("multimodal_moe_torch.cli.train_moe",
+                                     [*common, "--epochs", 1, "--project", runs, "--name",
+                                      "moe", *dims], {**env, "CHIP_SMOKE_CONTEXT_IDS": "1"})
+        check_child(moe, "train_moe")
+        routed = [json.loads(line[len("[context_ids] "):]) for line in moe_log.splitlines()
+                  if line.startswith("[context_ids] ")]
+        want = Counter(SOLAR_BIN_TO_ID[label] for label in by_id.loc[ids["train"],
+                                                                      "solar_context_bin"])
+        got = Counter(routed[-1]) if routed else Counter()
+        rec["train_moe"] = {**moe, **run_summary(runs / "moe"),
+                            "routed_solar_ids": dict(sorted(got.items())),
+                            "train_split_solar_ids": dict(sorted(want.items()))}
+        check(np.isfinite(rec["train_moe"]["loss"]) and rec["train_moe"]["files_ok"],
+              f"train_moe: {rec['train_moe']}")
+        check(moe["launches"]["nms_keep"] == val_batches, f"train_moe B1 {moe['launches']}")
+        check(got <= want and got.total() == sizes["train"] // YOLO_B * YOLO_B
+              and len(got) >= 3,
+              f"routed solar ids {dict(got)}, the train split's column {dict(want)}")
+
+        # (e) eval_detector on (d)'s run over the test split.
+        ev, _ = run_cli_child("multimodal_moe_torch.cli.eval_detector",
+                              [*common, "--backend", "moe", "--weights", runs / "moe",
+                               "--split", "test", "--run-name", "ingest", *dims], env)
+        check_child(ev, "eval_detector")
+        metrics = json.loads((root / "eval" / "moe" / "ingest" / "metrics.json").read_text())
+        own = {"params_total", "flops_g", "fps_inference_only", "speed_total_ms_per_img",
+               "fps_end_to_end", "curves_results"}
+        rec["eval_detector"] = {**ev, "n_images": metrics["n_images"],
+                                "map50": metrics.get("map50"),
+                                "speed_inference_ms_per_img": metrics["speed_inference_ms_per_img"],
+                                "extra_keys": sorted(set(metrics) - evaluate_keys)}
+        check(ev["launches"]["nms_keep"] == test_batches and metrics["n_images"] == sizes["test"],
+              f"eval_detector: B1 {ev['launches']}, {metrics['n_images']} images")
+        check(set(metrics) - own == evaluate_keys
+              and rec["eval_detector"]["extra_keys"] == cli_extra_keys,
+              f"eval keys {sorted(set(metrics) ^ (evaluate_keys | own))}")
+        children = [build, qa_run, freq, ey, ec, yolo, moe, ev]
+        rec["launches"] = {k: sum(c["launches"][k] for c in children)
+                           for k in [*kernel_counts(), "gmm_transposed"]}
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    return rec
+
+
+def run_summary(run: Path) -> dict:
+    """A training child's run dir: its files, the last epoch's loss and
+    metrics, its epoch's wall seconds."""
+    progress = json.loads((run / "fit_progress.json").read_text())
+    last = progress["history"][-1]
+    return {"files_ok": set(os.listdir(run)) == CLI_RUN_FILES
+            and {"best", "last"} <= set(os.listdir(run / "weights")),
+            "loss": float(last.get("loss", float("nan"))),
+            "val": {k: v for k, v in last.items() if k.startswith("val_")},
+            "epoch_wall_s": progress["train_wall_s_accum"]}
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--multigpu-rank":
         return multigpu_rank(Path(sys.argv[2]))
@@ -5641,6 +5916,16 @@ def main() -> int:
     nms_entry["multigpu_val_launches"] = multigpu["fit"]["nms_keep_per_rank"]
     nms_entry["cli_launches"]["analyze_moe_routing"] = \
         cli["analyze_moe_routing"]["launches"]["nms_keep"]
+    ingest = phase_ingest(smi, set(evaluation["models"]["moe"]["metrics"]),
+                          cli["eval_detector"]["extra_keys"])
+    nms_entry["ingest_launches"] = {
+        "train_yolo_validation": ingest["train_yolo"]["launches"]["nms_keep"],
+        "train_moe_validation": ingest["train_moe"]["launches"]["nms_keep"],
+        "eval_detector": ingest["eval_detector"]["launches"]["nms_keep"]}
+    # B2, B3, B4 and B5 do not run on the ingest path (train_moe runs ``auto``).
+    ffn_entry["ingest_launches"] = ingest["launches"]["moe_ffn_fwd"]
+    deform_entry["ingest_launches"] = ingest["launches"]["ms_deform_fwd"]
+    bwd_entry["ingest_launches"] = ingest["launches"]["ms_deform_bwd"]
     counts = moe_train["dispatch"]["gmm"]["launches_per_step"]
     gmm_entries = gmm_kernel_entries(gmm_cases, {
         "gmm": counts["gmm_forward"], "gmm_transposed": counts["gmm"] - counts["gmm_forward"],
@@ -5656,6 +5941,10 @@ def main() -> int:
         key = {"gmm": "gmm_forward", "gmm_transposed": "gmm_transposed", "tgmm": "tgmm"}
         entry["multigpu_launches"] = [r[key[entry["name"]]] for r in
                                       multigpu["cases"]["moe_gmm_1x2"]["launches_per_rank"]]
+        entry["ingest_launches"] = {
+            "gmm": ingest["launches"]["gmm"] - ingest["launches"]["gmm_transposed"],
+            "gmm_transposed": ingest["launches"]["gmm_transposed"],
+            "tgmm": ingest["launches"]["tgmm"]}[entry["name"]]
     emit({"kernels": [nms_entry, deform_entry, bwd_entry, ffn_entry, *gmm_entries]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi_line(), flush=True)

@@ -1,11 +1,12 @@
 """Solar-elevation context bins: the routing signal of the MoE detector.
 
-The port's own copy of the parts of ``multimodal_moe_tpu/data/solar.py``
-that the loaders and the router read: right-closed intervals over
+The port's own copy of ``multimodal_moe_tpu/data/solar.py``: right-closed
+intervals over
 ``(-inf, -6], (-6, 0], (0, 15], (15, 45], (45, inf)`` labelled
 night/twilight/low_sun/mid_sun/high_sun, ``"missing"`` for absent values,
-and their integer ids. The ingestion half (``add_solar_context_bins``,
-``solar_bin_labels``) is not ported. pandas is imported where it is used.
+their integer ids, and the ingestion stage that writes the labels into the
+parquet (``solar_bin_labels``, ``add_solar_context_bins``). pandas is
+imported where it is used.
 """
 
 from __future__ import annotations
@@ -36,6 +37,28 @@ def solar_bin_ids(solar_elevation) -> np.ndarray:
     ids = np.digitize(x, SOLAR_BIN_EDGES[1:-1], right=True)
     ids = np.where(np.isnan(x), len(SOLAR_BIN_LABELS), ids)
     return ids.astype(np.int32)
+
+
+def solar_bin_labels(solar_elevation):
+    """Vectorized elevation (degrees) → string label ``pandas.Series``
+    (``"string"`` dtype)."""
+    import pandas as pd
+
+    ids = solar_bin_ids(solar_elevation)
+    all_labels = np.asarray(SOLAR_BIN_LABELS + [MISSING_LABEL], dtype=object)
+    return pd.Series(all_labels[ids]).astype("string")
+
+
+def add_solar_context_bins(df, out_col: str = "solar_context_bin"):
+    """A copy of ``df`` with the solar bin label column added; ``df`` needs
+    a ``solar_angle_elevation`` column."""
+    if "solar_angle_elevation" not in df.columns:
+        raise ValueError("Expected 'solar_angle_elevation' column in input parquet.")
+    out = df.copy()
+    labels = solar_bin_labels(out["solar_angle_elevation"])
+    labels.index = out.index
+    out[out_col] = labels
+    return out
 
 
 def solar_bin_one_hot(bin_ids: np.ndarray) -> np.ndarray:

@@ -1,17 +1,22 @@
 """The PyTorch port stands alone: no module of ``multimodal_moe_torch`` (nor
 ``chip_smoke.py``) imports ``jax``, ``flax``, ``optax``, ``orbax`` or
-``multimodal_moe_tpu``; the training, evaluation, data and serving modules
-and the CLIs are among those imported. The data modules import pandas,
-pyarrow and PIL only inside the functions that use them, so importing the
-port needs none of them."""
+``multimodal_moe_tpu``; the training, evaluation, data, ingestion and
+serving modules and the CLIs are among those imported. No module imports
+``sklearn`` (the card's host lacks it: the splits are the port's own numpy),
+and none imports tqdm at module level (it is optional). The data modules
+import pandas, pyarrow and PIL only inside the functions that use them, so
+importing the port needs none of them."""
 
 import ast
 import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "optax", "orbax", "multimodal_moe_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "multimodal_moe_tpu", "sklearn")
+OPTIONAL = ("tqdm",)     # imported inside the function that uses it, if at all
 # Modules that must be among those the child imports (the training, the
 # evaluation, the data and the serving modules, the CLIs).
 REQUIRED = ("multimodal_moe_torch.losses.hungarian", "multimodal_moe_torch.ops.assignment",
@@ -30,7 +35,18 @@ REQUIRED = ("multimodal_moe_torch.losses.hungarian", "multimodal_moe_torch.ops.a
             "multimodal_moe_torch.cli.train_rtdetr", "multimodal_moe_torch.cli.eval_detector",
             "multimodal_moe_torch.cli.quantize_yolo",
             "multimodal_moe_torch.cli.train_vision_baseline",
-            "multimodal_moe_torch.cli.analyze_moe_routing")
+            "multimodal_moe_torch.cli.analyze_moe_routing",
+            "multimodal_moe_torch.data.bboxes", "multimodal_moe_torch.data.splits",
+            "multimodal_moe_torch.data.indexer", "multimodal_moe_torch.data.qa",
+            "multimodal_moe_torch.data.synthetic",
+            "multimodal_moe_torch.cli.build_zod_index", "multimodal_moe_torch.cli.add_bboxes",
+            "multimodal_moe_torch.cli.add_solar_context_bins",
+            "multimodal_moe_torch.cli.create_splits",
+            "multimodal_moe_torch.cli.export_yolo_dataset",
+            "multimodal_moe_torch.cli.export_coco_dataset",
+            "multimodal_moe_torch.cli.analyze_index_qa",
+            "multimodal_moe_torch.cli.analyze_context_frequencies",
+            "multimodal_moe_torch.cli.build_synth_corpus")
 
 _CHILD = """
 import importlib, pkgutil, sys
@@ -48,23 +64,26 @@ assert not bad, bad
 """
 
 
-def test_import_pulls_in_no_jax():
+@pytest.fixture(scope="module")
+def child():
+    """One child that imports every module of the port and ``chip_smoke``."""
     code = _CHILD.replace("{forbidden}", repr(set(FORBIDDEN)))
-    proc = subprocess.run(
+    return subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300,
     )
+
+
+def test_import_pulls_in_no_jax(child):
+    proc = child
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 10  # every module was imported
     assert set(REQUIRED) <= set(proc.stdout.split())
 
 
-def test_import_pulls_in_no_table_or_image_library():
+def test_import_pulls_in_no_table_or_image_library(child):
     """pandas, pyarrow and PIL are present here but not imported by the
     import of every module (the card's host may lack them)."""
-    code = _CHILD.replace("{forbidden}", repr(set(FORBIDDEN)))
-    proc = subprocess.run(
-        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300,
-    )
+    proc = child
     assert proc.returncode == 0, proc.stderr
     import importlib.util
 
@@ -88,3 +107,23 @@ def test_no_forbidden_import_statement():
             else:
                 continue
             assert not set(roots) & set(FORBIDDEN), f"{path}:{node.lineno} imports {roots}"
+
+
+def test_optional_packages_load_lazily():
+    """No import of tqdm stands at module level (torch itself loads tqdm,
+    so ``sys.modules`` cannot show it)."""
+    for path in _sources():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        nested = {id(n) for f in ast.walk(tree)
+                  if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+                  for n in ast.walk(f)}
+        for node in ast.walk(tree):
+            if id(node) in nested:
+                continue
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                roots = [(node.module or "").split(".")[0]]
+            else:
+                continue
+            assert not set(roots) & set(OPTIONAL), f"{path}:{node.lineno} imports {roots}"
