@@ -387,6 +387,34 @@ Phases (each prints one JSON line):
                ``eval_detector`` on (d)'s run over the test split: B1 once a
                batch, ``metrics.json``'s keys the ``cli`` phase's. Also
                whether sklearn, tqdm, matplotlib and tabulate import here.
+24. tools   -- the port's last tools, after ``ingest``, on what ``cli`` and
+               ``ingest`` wrote (one work directory for the three phases):
+               (a) ``load_test_server`` as a child at its defaults (704x1248,
+               fp32, B=16, pool 512, a 20 ms window) on random-weight YOLO-s
+               and MoE-YOLO-s run dirs, ``--concurrency 1,16 --duration 3
+               --raw`` each, then YOLO-s with JPEG bodies at 16 clients and
+               with ``--int8`` (self-calibrating) at 16 raw clients: every
+               level with 0 errors, completions and a mean batch fill in
+               [1, 16]; B1 counted in each child, above 0 and at least the
+               levels' device calls; (b) in this process on the ``ingest``
+               corpus: ``sanity_dataloader`` (its three lines),
+               ``report_detector_benchmarks`` over the eval dirs (a row for
+               each eval run dir, the plots written or skipped),
+               ``vis_boxes`` (``min(12, pool)`` annotated frames) and
+               ``print_paths`` (a line a registered path), no kernel
+               launched; whether nbformat and nbclient import here (the
+               notebooks are not built); (c) ``train_vision_baseline``
+               on two gloo ranks sharing the card (``chip_smoke.py
+               --vision-rank DIR``, as ``multigpu`` launches its ranks;
+               ResNet-50 at 256x256, 64 frames of the train split, 16 a
+               rank, one epoch, TF32 off), its first step's loss, before
+               the update, within 1e-4 relative of the one-process run's
+               (``--batch 32``) on the same global batch, its gradient norm
+               within the larger of 1e-4 and 5x the norm's noise when only
+               the rows' order changes (the largest difference between the
+               one-process steps in the CLI's order, the ranks' row order
+               and its reverse); the control, the two halves each with its
+               own BatchNorm statistics, must fail that.
 
 """
 
@@ -398,6 +426,7 @@ import ctypes
 import functools
 import http.client
 import io
+import itertools
 import json
 import os
 import queue
@@ -5398,7 +5427,7 @@ def cli_corpus(root: Path) -> dict:
     return {"parquet": corpus["parquet"], "splits": splits}
 
 
-def phase_cli(dev, smi: str, evaluate_keys: set) -> dict:
+def phase_cli(dev, smi: str, evaluate_keys: set, work: Path) -> dict:
     from multimodal_moe_torch.cli import quantize_yolo, train_rtdetr
 
     t0 = time.perf_counter()
@@ -5408,169 +5437,169 @@ def phase_cli(dev, smi: str, evaluate_keys: set) -> dict:
     rec = {"phase": "cli", "gpu": smi, "img_hw": [IMG_H, IMG_W], "batch": YOLO_B,
            "train_frames": CLI_TRAIN_FRAMES, "val_frames": CLI_VAL_FRAMES,
            "steps_per_epoch": steps, "val_batches": val_batches}
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        data = cli_corpus(root)
-        common = ["--parquet", data["parquet"], "--splits-dir", data["splits"],
-                  "--img-h", IMG_H, "--img-w", IMG_W]   # the CLIs' defaults
-        env = {"EVAL_DIR": str(root / "eval")}
+    root = work / "cli"
+    root.mkdir()
+    data = cli_corpus(root)
+    common = ["--parquet", data["parquet"], "--splits-dir", data["splits"],
+              "--img-h", IMG_H, "--img-w", IMG_W]   # the CLIs' defaults
+    env = {"EVAL_DIR": str(work / "eval")}
 
-        # (a) train_moe --resident, paused after one epoch, then resumed.
-        run = root / "runs" / "moe"
-        train = [*common, "--project", root / "runs", "--name", "moe", "--resident",
-                 "--epochs", "2", "--max-epochs-this-run", "1"]
-        first, log1 = run_cli_child("multimodal_moe_torch.cli.train_moe", train, env)
-        check_child(first, "train_moe")
-        progress1 = json.loads((run / "fit_progress.json").read_text())
-        second, log2 = run_cli_child("multimodal_moe_torch.cli.train_moe", [*train, "--resume"],
-                                     env)
-        check_child(second, "train_moe --resume")
-        progress = json.loads((run / "fit_progress.json").read_text())
-        stores = re.findall(r"decoded \((\w+)\)", log1 + log2)
-        meta = json.loads((run / "run_metadata.json").read_text())
-        rec["train_moe"] = {
-            "runs": [first, second], "resident_stores": stores,
-            "yuv420_fallback_said": "yuv420 path unavailable" in log1,
-            "progress_epochs": [progress1["epoch"], progress["epoch"]],
-            "epoch_wall_s": progress["train_wall_s_accum"] / len(progress["history"]),
-            "files": sorted(os.listdir(run)), "device_kind": meta["device_kind"],
-            "model_config": json.loads((run / "model_config.json").read_text()),
-            "last_epoch": {k: v for k, v in progress["history"][-1].items()
-                           if k in ("loss", "moe_aux_loss", "val_map50", "val_n_images")}}
-        want_store = "yuv420" if native else "rgb"
-        check(stores == [want_store] * 4, f"resident stores {stores}, expected {want_store}")
-        check(rec["train_moe"]["progress_epochs"] == [0, 1], f"epochs {rec['train_moe']}")
-        check(set(os.listdir(run)) == CLI_RUN_FILES and
-              {"best", "last"} <= set(os.listdir(run / "weights")), f"run dir {os.listdir(run)}")
-        check(meta["device_kind"] == torch.cuda.get_device_name(0), "run_metadata names the card")
-        for r in (first, second):
-            check(r["launches"]["nms_keep"] == val_batches and r["launches"]["gmm"] == 0,
-                  f"train_moe launches {r['launches']}")
+    # (a) train_moe --resident, paused after one epoch, then resumed.
+    run = root / "runs" / "moe"
+    train = [*common, "--project", root / "runs", "--name", "moe", "--resident",
+             "--epochs", "2", "--max-epochs-this-run", "1"]
+    first, log1 = run_cli_child("multimodal_moe_torch.cli.train_moe", train, env)
+    check_child(first, "train_moe")
+    progress1 = json.loads((run / "fit_progress.json").read_text())
+    second, log2 = run_cli_child("multimodal_moe_torch.cli.train_moe", [*train, "--resume"],
+                                 env)
+    check_child(second, "train_moe --resume")
+    progress = json.loads((run / "fit_progress.json").read_text())
+    stores = re.findall(r"decoded \((\w+)\)", log1 + log2)
+    meta = json.loads((run / "run_metadata.json").read_text())
+    rec["train_moe"] = {
+        "runs": [first, second], "resident_stores": stores,
+        "yuv420_fallback_said": "yuv420 path unavailable" in log1,
+        "progress_epochs": [progress1["epoch"], progress["epoch"]],
+        "epoch_wall_s": progress["train_wall_s_accum"] / len(progress["history"]),
+        "files": sorted(os.listdir(run)), "device_kind": meta["device_kind"],
+        "model_config": json.loads((run / "model_config.json").read_text()),
+        "last_epoch": {k: v for k, v in progress["history"][-1].items()
+                       if k in ("loss", "moe_aux_loss", "val_map50", "val_n_images")}}
+    want_store = "yuv420" if native else "rgb"
+    check(stores == [want_store] * 4, f"resident stores {stores}, expected {want_store}")
+    check(rec["train_moe"]["progress_epochs"] == [0, 1], f"epochs {rec['train_moe']}")
+    check(set(os.listdir(run)) == CLI_RUN_FILES and
+          {"best", "last"} <= set(os.listdir(run / "weights")), f"run dir {os.listdir(run)}")
+    check(meta["device_kind"] == torch.cuda.get_device_name(0), "run_metadata names the card")
+    for r in (first, second):
+        check(r["launches"]["nms_keep"] == val_batches and r["launches"]["gmm"] == 0,
+              f"train_moe launches {r['launches']}")
 
-        # (b) train_rtdetr in this process: B4 and B5 counted in training and
-        # in validation (torch's defaults: cuDNN TF32 on, matmul off).
-        val_counts = {}
+    # (b) train_rtdetr in this process: B4 and B5 counted in training and
+    # in validation (torch's defaults: cuDNN TF32 on, matmul off).
+    val_counts = {}
 
-        def counted_val(make):
-            def make_val(*a, **k):
-                val = make(*a, **k)
+    def counted_val(make):
+        def make_val(*a, **k):
+            val = make(*a, **k)
 
-                def val_fn(state):
-                    before = kernel_counts()
-                    metrics = val(state)
-                    val_counts.update({k: v - before[k] for k, v in kernel_counts().items()})
-                    return metrics
-                return val_fn
-            return make_val
+            def val_fn(state):
+                before = kernel_counts()
+                metrics = val(state)
+                val_counts.update({k: v - before[k] for k, v in kernel_counts().items()})
+                return metrics
+            return val_fn
+        return make_val
 
-        tf32 = tf32_state()
-        torch.backends.cudnn.allow_tf32 = True
-        zero_kernel_counts()
-        t1 = time.perf_counter()
-        try:
-            with patched(evaluator, "make_ema_val_fn", counted_val):
-                train_rtdetr.main([str(a) for a in (*common, "--project", root / "runs",
-                                                    "--name", "rtdetr", "--epochs", "1")])
-            torch.cuda.synchronize()
-        finally:
-            torch.backends.cudnn.allow_tf32 = tf32["cudnn_allow_tf32"]
-        total = kernel_counts()
-        train_counts = {k: v - val_counts[k] for k, v in total.items()}
-        rt_progress = json.loads((root / "runs" / "rtdetr" / "fit_progress.json").read_text())
-        rec["train_rtdetr"] = {
-            "wall_s": time.perf_counter() - t1, "launches": total,
-            "train_launches_per_step": {k: v / steps for k, v in train_counts.items()},
-            "val_launches_per_batch": {k: v / val_batches for k, v in val_counts.items()},
-            "epoch_wall_s": rt_progress["train_wall_s_accum"],
-            "loss": rt_progress["history"][-1].get("loss"),
-            "files": sorted(os.listdir(root / "runs" / "rtdetr"))}
-        torch.cuda.empty_cache()
-        check(train_counts["ms_deform_fwd"] == 6 * steps and train_counts["ms_deform_bwd"] == 6 * steps,
-              f"train_rtdetr: B4/B5 {train_counts}, expected 6 a step")
-        check(val_counts["ms_deform_fwd"] == 6 * val_batches and val_counts["ms_deform_bwd"] == 0
-              and total["nms_keep"] == 0, f"train_rtdetr validation {val_counts}, B1 {total}")
-        check(set(os.listdir(root / "runs" / "rtdetr")) == CLI_RUN_FILES, "rtdetr run dir")
-
-        # (c) eval_detector on (a)'s run.
-        ev, _ = run_cli_child("multimodal_moe_torch.cli.eval_detector",
-                              [*common, "--backend", "moe", "--weights", run,
-                               "--run-name", "moe_cli"], env)
-        check_child(ev, "eval_detector")
-        metrics = json.loads((root / "eval" / "moe" / "moe_cli" / "metrics.json").read_text())
-        own = {"params_total", "flops_g", "fps_inference_only", "speed_total_ms_per_img",
-               "fps_end_to_end", "curves_results"}
-        rec["eval_detector"] = {**ev, "n_images": metrics["n_images"],
-                                "params_total": metrics["params_total"],
-                                "flops_g": metrics["flops_g"],
-                                "speed_inference_ms_per_img": metrics["speed_inference_ms_per_img"],
-                                "extra_keys": sorted(set(metrics) - evaluate_keys)}
-        check(ev["launches"]["nms_keep"] == val_batches and metrics["n_images"] == CLI_VAL_FRAMES,
-              f"eval_detector: B1 {ev['launches']}, {metrics['n_images']} images")
-        check(set(metrics) - own == evaluate_keys,
-              f"eval keys {sorted(set(metrics) ^ (evaluate_keys | own))}")
-
-        # (d) quantize_yolo in this process on a YOLO-s run dir, then
-        # eval_detector --int8 reading its npz.
-        yolo_run = write_run_dir(root / "qruns", {"family": "yolo", "variant": "s"})
-        t1 = time.perf_counter()
-        quantize_yolo.main([str(a) for a in (*common, "--weights", yolo_run)])
+    tf32 = tf32_state()
+    torch.backends.cudnn.allow_tf32 = True
+    zero_kernel_counts()
+    t1 = time.perf_counter()
+    try:
+        with patched(evaluator, "make_ema_val_fn", counted_val):
+            train_rtdetr.main([str(a) for a in (*common, "--project", root / "runs",
+                                                "--name", "rtdetr", "--epochs", "1")])
         torch.cuda.synchronize()
-        npz = yolo_run / "weights" / "int8_quant_best.npz"
-        rec["quantize_yolo"] = {"wall_s": time.perf_counter() - t1, "npz_bytes": npz.stat().st_size,
-                                "leaves": len(np.load(npz).files)}
-        torch.cuda.empty_cache()
-        ev8, log8 = run_cli_child("multimodal_moe_torch.cli.eval_detector",
-                                  [*common, "--backend", "yolo", "--weights", yolo_run, "--int8",
-                                   "--run-name", "yolo_int8"], env)
-        check_child(ev8, "eval_detector --int8")
-        m8 = json.loads((root / "eval" / "yolo" / "yolo_int8" / "metrics.json").read_text())
-        rec["eval_int8"] = {**ev8, "reused_npz": f"Loaded int8 quant tree <- {npz}" in log8,
-                            "quantization": m8.get("quantization"), "n_images": m8["n_images"],
-                            "speed_inference_ms_per_img": m8["speed_inference_ms_per_img"]}
-        check(rec["eval_int8"]["reused_npz"] and m8.get("quantization") == "int8_w8a8_ptq",
-              "eval_detector --int8 read quantize_yolo's npz")
-        check(ev8["launches"]["nms_keep"] == val_batches, f"int8 eval B1 {ev8['launches']}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32["cudnn_allow_tf32"]
+    total = kernel_counts()
+    train_counts = {k: v - val_counts[k] for k, v in total.items()}
+    rt_progress = json.loads((root / "runs" / "rtdetr" / "fit_progress.json").read_text())
+    rec["train_rtdetr"] = {
+        "wall_s": time.perf_counter() - t1, "launches": total,
+        "train_launches_per_step": {k: v / steps for k, v in train_counts.items()},
+        "val_launches_per_batch": {k: v / val_batches for k, v in val_counts.items()},
+        "epoch_wall_s": rt_progress["train_wall_s_accum"],
+        "loss": rt_progress["history"][-1].get("loss"),
+        "files": sorted(os.listdir(root / "runs" / "rtdetr"))}
+    torch.cuda.empty_cache()
+    check(train_counts["ms_deform_fwd"] == 6 * steps and train_counts["ms_deform_bwd"] == 6 * steps,
+          f"train_rtdetr: B4/B5 {train_counts}, expected 6 a step")
+    check(val_counts["ms_deform_fwd"] == 6 * val_batches and val_counts["ms_deform_bwd"] == 0
+          and total["nms_keep"] == 0, f"train_rtdetr validation {val_counts}, B1 {total}")
+    check(set(os.listdir(root / "runs" / "rtdetr")) == CLI_RUN_FILES, "rtdetr run dir")
 
-        # (e) train_vision_baseline as a child on the train split (the
-        # subset is the split): ResNet-50 at 256x256, B=32, two epochs.
-        plot = root / "plots" / "train_acc.png"
-        vb, vlog = run_cli_child("multimodal_moe_torch.cli.train_vision_baseline",
-                                 ["--parquet", data["parquet"],
-                                  "--split-csv", data["splits"] / "train_ids.csv",
-                                  "--img-size", 256, "--batch", 32, "--epochs", 2,
-                                  "--plot-path", plot], env)
-        check_child(vb, "train_vision_baseline")
-        epochs = [{"loss": float(loss), "acc": float(acc)}
-                  for loss, acc in re.findall(r"epoch \d+/2 loss=(\S+) acc=(\S+)", vlog)]
-        wall = re.search(r"train wall time: (\S+)s", vlog)
-        rec["train_vision_baseline"] = {
-            **vb, "epochs": epochs, "steps_per_epoch": CLI_TRAIN_FRAMES // 32,
-            "train_wall_s": float(wall.group(1)) if wall else None,
-            "plot": "written" if plot.exists() else ("skipped" if "skipped plot" in vlog else None)}
-        check(len(epochs) == 2 and all(np.isfinite(e["loss"]) for e in epochs)
-              and wall is not None and rec["train_vision_baseline"]["plot"] is not None,
-              f"train_vision_baseline: {rec['train_vision_baseline']}")
+    # (c) eval_detector on (a)'s run.
+    ev, _ = run_cli_child("multimodal_moe_torch.cli.eval_detector",
+                          [*common, "--backend", "moe", "--weights", run,
+                           "--run-name", "moe_cli"], env)
+    check_child(ev, "eval_detector")
+    metrics = json.loads((work / "eval" / "moe" / "moe_cli" / "metrics.json").read_text())
+    own = {"params_total", "flops_g", "fps_inference_only", "speed_total_ms_per_img",
+           "fps_end_to_end", "curves_results"}
+    rec["eval_detector"] = {**ev, "n_images": metrics["n_images"],
+                            "params_total": metrics["params_total"],
+                            "flops_g": metrics["flops_g"],
+                            "speed_inference_ms_per_img": metrics["speed_inference_ms_per_img"],
+                            "extra_keys": sorted(set(metrics) - evaluate_keys)}
+    check(ev["launches"]["nms_keep"] == val_batches and metrics["n_images"] == CLI_VAL_FRAMES,
+          f"eval_detector: B1 {ev['launches']}, {metrics['n_images']} images")
+    check(set(metrics) - own == evaluate_keys,
+          f"eval keys {sorted(set(metrics) ^ (evaluate_keys | own))}")
 
-        # (f) analyze_moe_routing as a child on (a)'s run dir, over the val
-        # split's bins (every one holds at least ROUTING_PER_CONTEXT frames).
-        out_dir = root / "routing"
-        ar, _ = run_cli_child("multimodal_moe_torch.cli.analyze_moe_routing",
-                              [*common, "--weights", run, "--per-context", ROUTING_PER_CONTEXT,
-                               "--out-dir", out_dir], env)
-        check_child(ar, "analyze_moe_routing")
-        payload = json.loads((out_dir / "routing_by_context.json").read_text())
-        loads = {k: np.asarray(v) for k, v in payload["expert_load_by_context"].items()}
-        sums = [float(x) for v in loads.values() for x in v.sum(-1)]
-        rec["analyze_moe_routing"] = {
-            **ar, "bins": list(loads), "report_written": (out_dir / "routing_report.md").exists(),
-            "keys": sorted(payload), "load_row_sums": [min(sums), max(sums)] if sums else None,
-            "max_l1_divergence": max((x for v in payload["l1_divergence_per_level"].values()
-                                      for x in v), default=None),
-            "max_counterfactual_shift": max((x for v in payload[
-                "counterfactual_ctx_shift_per_level"].values() for x in v), default=None)}
-        check(rec["analyze_moe_routing"]["report_written"] and len(loads) == len(DATA_SOLAR)
-              and all(abs(x - MOE_K) <= 1e-5 for x in sums),
-              f"analyze_moe_routing: {rec['analyze_moe_routing']}")
+    # (d) quantize_yolo in this process on a YOLO-s run dir, then
+    # eval_detector --int8 reading its npz.
+    yolo_run = write_run_dir(root / "qruns", {"family": "yolo", "variant": "s"})
+    t1 = time.perf_counter()
+    quantize_yolo.main([str(a) for a in (*common, "--weights", yolo_run)])
+    torch.cuda.synchronize()
+    npz = yolo_run / "weights" / "int8_quant_best.npz"
+    rec["quantize_yolo"] = {"wall_s": time.perf_counter() - t1, "npz_bytes": npz.stat().st_size,
+                            "leaves": len(np.load(npz).files)}
+    torch.cuda.empty_cache()
+    ev8, log8 = run_cli_child("multimodal_moe_torch.cli.eval_detector",
+                              [*common, "--backend", "yolo", "--weights", yolo_run, "--int8",
+                               "--run-name", "yolo_int8"], env)
+    check_child(ev8, "eval_detector --int8")
+    m8 = json.loads((work / "eval" / "yolo" / "yolo_int8" / "metrics.json").read_text())
+    rec["eval_int8"] = {**ev8, "reused_npz": f"Loaded int8 quant tree <- {npz}" in log8,
+                        "quantization": m8.get("quantization"), "n_images": m8["n_images"],
+                        "speed_inference_ms_per_img": m8["speed_inference_ms_per_img"]}
+    check(rec["eval_int8"]["reused_npz"] and m8.get("quantization") == "int8_w8a8_ptq",
+          "eval_detector --int8 read quantize_yolo's npz")
+    check(ev8["launches"]["nms_keep"] == val_batches, f"int8 eval B1 {ev8['launches']}")
+
+    # (e) train_vision_baseline as a child on the train split (the
+    # subset is the split): ResNet-50 at 256x256, B=32, two epochs.
+    plot = root / "plots" / "train_acc.png"
+    vb, vlog = run_cli_child("multimodal_moe_torch.cli.train_vision_baseline",
+                             ["--parquet", data["parquet"],
+                              "--split-csv", data["splits"] / "train_ids.csv",
+                              "--img-size", 256, "--batch", 32, "--epochs", 2,
+                              "--plot-path", plot], env)
+    check_child(vb, "train_vision_baseline")
+    epochs = [{"loss": float(loss), "acc": float(acc)}
+              for loss, acc in re.findall(r"epoch \d+/2 loss=(\S+) acc=(\S+)", vlog)]
+    wall = re.search(r"train wall time: (\S+)s", vlog)
+    rec["train_vision_baseline"] = {
+        **vb, "epochs": epochs, "steps_per_epoch": CLI_TRAIN_FRAMES // 32,
+        "train_wall_s": float(wall.group(1)) if wall else None,
+        "plot": "written" if plot.exists() else ("skipped" if "skipped plot" in vlog else None)}
+    check(len(epochs) == 2 and all(np.isfinite(e["loss"]) for e in epochs)
+          and wall is not None and rec["train_vision_baseline"]["plot"] is not None,
+          f"train_vision_baseline: {rec['train_vision_baseline']}")
+
+    # (f) analyze_moe_routing as a child on (a)'s run dir, over the val
+    # split's bins (every one holds at least ROUTING_PER_CONTEXT frames).
+    out_dir = root / "routing"
+    ar, _ = run_cli_child("multimodal_moe_torch.cli.analyze_moe_routing",
+                          [*common, "--weights", run, "--per-context", ROUTING_PER_CONTEXT,
+                           "--out-dir", out_dir], env)
+    check_child(ar, "analyze_moe_routing")
+    payload = json.loads((out_dir / "routing_by_context.json").read_text())
+    loads = {k: np.asarray(v) for k, v in payload["expert_load_by_context"].items()}
+    sums = [float(x) for v in loads.values() for x in v.sum(-1)]
+    rec["analyze_moe_routing"] = {
+        **ar, "bins": list(loads), "report_written": (out_dir / "routing_report.md").exists(),
+        "keys": sorted(payload), "load_row_sums": [min(sums), max(sums)] if sums else None,
+        "max_l1_divergence": max((x for v in payload["l1_divergence_per_level"].values()
+                                  for x in v), default=None),
+        "max_counterfactual_shift": max((x for v in payload[
+            "counterfactual_ctx_shift_per_level"].values() for x in v), default=None)}
+    check(rec["analyze_moe_routing"]["report_written"] and len(loads) == len(DATA_SOLAR)
+          and all(abs(x - MOE_K) <= 1e-5 for x in sums),
+          f"analyze_moe_routing: {rec['analyze_moe_routing']}")
     rec["seconds"] = time.perf_counter() - t0
     emit(rec)
     return rec
@@ -5617,7 +5646,7 @@ def symlinks_resolve(images: Path) -> "tuple[int, int]":
     return len(links), sum(1 for p in links if p.is_symlink() and p.resolve().is_file())
 
 
-def phase_ingest(smi: str, evaluate_keys: set, cli_extra_keys: list) -> dict:
+def phase_ingest(smi: str, evaluate_keys: set, cli_extra_keys: list, work: Path) -> dict:
     """The port's ingestion CLIs on this host, then ``train_yolo``,
     ``train_moe`` and ``eval_detector`` on what they wrote, each a child."""
     import importlib.util
@@ -5633,160 +5662,442 @@ def phase_ingest(smi: str, evaluate_keys: set, cli_extra_keys: list) -> dict:
            "split_sizes": sizes,
            "host_packages": {m: importlib.util.find_spec(m) is not None
                              for m in INGEST_HOST_PACKAGES}}
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        corpus = root / "corpus"
-        env = {"EVAL_DIR": str(root / "eval")}
+    root = work / "ingest"
+    root.mkdir()
+    corpus = root / "corpus"
+    env = {"EVAL_DIR": str(work / "eval")}
 
-        # (a) build: tree -> index with resized JPEGs -> boxes -> solar bins -> splits.
-        build, log = run_cli_child("multimodal_moe_torch.cli.build_synth_corpus",
-                                   ["--root", corpus, "--frames", INGEST_FRAMES,
-                                    "--seed", INGEST_SEED, "--workers", INGEST_WORKERS], env)
-        check_child(build, "build_synth_corpus")
-        stages = json.loads(next(line for line in log.splitlines()
-                                 if line.startswith("[stages] "))[len("[stages] "):])["seconds"]
-        summary = json.loads((corpus / "corpus_build_summary.json").read_text())
-        final = Path(summary["final_parquet"])
-        splits_dir = corpus / "splits"
-        df = pd.read_parquet(final)
-        ids = {k: pd.read_csv(splits_dir / f"{k}_ids.csv", dtype=str)["frame_id"].tolist()
-               for k in sizes}
-        rec["build"] = {
-            **build, "stage_s": stages,
-            "stage_s_per_frame": {k: v / INGEST_FRAMES for k, v in stages.items()},
-            "bytes": {d: dir_bytes(corpus / d) for d in ("raw", "resized_images", "outputs",
-                                                         "splits")},
-            "split_sizes": summary["split_sizes"],
-            "solar_bins": df["solar_context_bin"].value_counts().to_dict(),
-            "boxes": int(df["xyxy_bboxes"].map(len).sum())}
-        check(set(stages) == set(INGEST_STAGES), f"stages {stages}")
-        check(summary["split_sizes"] == sizes and {k: len(v) for k, v in ids.items()} == sizes,
-              f"split sizes {summary['split_sizes']}, expected {sizes}")
-        check(len(df) == INGEST_FRAMES and not (set(ids["train"]) & set(ids["val"]))
-              and not (set(ids["train"]) & set(ids["test"])) and not (set(ids["val"]) & set(ids["test"]))
-              and set(ids["train"]) | set(ids["val"]) | set(ids["test"]) == set(df["frame_id"]),
-              "the splits are disjoint and cover every indexed frame")
-        labels = df["solar_context_bin"]
-        check(bool(labels.notna().all()) and set(labels) <= set(SOLAR_BIN_TO_ID)
-              and labels.tolist() == solar_bin_labels(df["solar_angle_elevation"]).tolist()
-              and labels.nunique() >= 3, f"solar bins {rec['build']['solar_bins']}")
+    # (a) build: tree -> index with resized JPEGs -> boxes -> solar bins -> splits.
+    build, log = run_cli_child("multimodal_moe_torch.cli.build_synth_corpus",
+                               ["--root", corpus, "--frames", INGEST_FRAMES,
+                                "--seed", INGEST_SEED, "--workers", INGEST_WORKERS], env)
+    check_child(build, "build_synth_corpus")
+    stages = json.loads(next(line for line in log.splitlines()
+                             if line.startswith("[stages] "))[len("[stages] "):])["seconds"]
+    summary = json.loads((corpus / "corpus_build_summary.json").read_text())
+    final = Path(summary["final_parquet"])
+    splits_dir = corpus / "splits"
+    df = pd.read_parquet(final)
+    ids = {k: pd.read_csv(splits_dir / f"{k}_ids.csv", dtype=str)["frame_id"].tolist()
+           for k in sizes}
+    rec["build"] = {
+        **build, "stage_s": stages,
+        "stage_s_per_frame": {k: v / INGEST_FRAMES for k, v in stages.items()},
+        "bytes": {d: dir_bytes(corpus / d) for d in ("raw", "resized_images", "outputs",
+                                                     "splits")},
+        "split_sizes": summary["split_sizes"],
+        "solar_bins": df["solar_context_bin"].value_counts().to_dict(),
+        "boxes": int(df["xyxy_bboxes"].map(len).sum())}
+    check(set(stages) == set(INGEST_STAGES), f"stages {stages}")
+    check(summary["split_sizes"] == sizes and {k: len(v) for k, v in ids.items()} == sizes,
+          f"split sizes {summary['split_sizes']}, expected {sizes}")
+    check(len(df) == INGEST_FRAMES and not (set(ids["train"]) & set(ids["val"]))
+          and not (set(ids["train"]) & set(ids["test"])) and not (set(ids["val"]) & set(ids["test"]))
+          and set(ids["train"]) | set(ids["val"]) | set(ids["test"]) == set(df["frame_id"]),
+          "the splits are disjoint and cover every indexed frame")
+    labels = df["solar_context_bin"]
+    check(bool(labels.notna().all()) and set(labels) <= set(SOLAR_BIN_TO_ID)
+          and labels.tolist() == solar_bin_labels(df["solar_angle_elevation"]).tolist()
+          and labels.nunique() >= 3, f"solar bins {rec['build']['solar_bins']}")
 
-        # QA and context frequencies over the final parquet.
-        qa_run, _ = run_cli_child("multimodal_moe_torch.cli.analyze_index_qa",
-                                  ["--parquet", final, "--out-dir", root / "qa"], env)
-        check_child(qa_run, "analyze_index_qa")
-        report = json.loads((root / "qa" / "qa_report.json").read_text())
-        freq, freq_log = run_cli_child("multimodal_moe_torch.cli.analyze_context_frequencies",
-                                       ["--parquet", final, "--out-dir", root / "ctx"], env)
-        check_child(freq, "analyze_context_frequencies")
-        rec["qa"] = {**qa_run, "parallel_array_violations": report["parallel_array_violations"],
-                     "occlusion_mismatched_frames": report["occlusion"]["n_mismatched_frames"],
-                     "n_boxes": report["bboxes"]["n_boxes"],
-                     "height_px_p50": report["bboxes"]["height_px"]["p50"]}
-        rec["context_frequencies"] = {
-            **freq, "plot": "written" if (root / "ctx" / "context_field_frequencies.png").exists()
-            else ("skipped" if "skipped plot" in freq_log else None)}
-        check(report["parallel_array_violations"] == 0
-              and report["occlusion"]["n_mismatched_frames"] == 0, f"QA {rec['qa']}")
-        check((root / "ctx" / "context_field_frequencies.csv").exists()
-              and rec["context_frequencies"]["plot"] is not None, "context frequencies")
+    # QA and context frequencies over the final parquet.
+    qa_run, _ = run_cli_child("multimodal_moe_torch.cli.analyze_index_qa",
+                              ["--parquet", final, "--out-dir", root / "qa"], env)
+    check_child(qa_run, "analyze_index_qa")
+    report = json.loads((root / "qa" / "qa_report.json").read_text())
+    freq, freq_log = run_cli_child("multimodal_moe_torch.cli.analyze_context_frequencies",
+                                   ["--parquet", final, "--out-dir", root / "ctx"], env)
+    check_child(freq, "analyze_context_frequencies")
+    rec["qa"] = {**qa_run, "parallel_array_violations": report["parallel_array_violations"],
+                 "occlusion_mismatched_frames": report["occlusion"]["n_mismatched_frames"],
+                 "n_boxes": report["bboxes"]["n_boxes"],
+                 "height_px_p50": report["bboxes"]["height_px"]["p50"]}
+    rec["context_frequencies"] = {
+        **freq, "plot": "written" if (root / "ctx" / "context_field_frequencies.png").exists()
+        else ("skipped" if "skipped plot" in freq_log else None)}
+    check(report["parallel_array_violations"] == 0
+          and report["occlusion"]["n_mismatched_frames"] == 0, f"QA {rec['qa']}")
+    check((root / "ctx" / "context_field_frequencies.csv").exists()
+          and rec["context_frequencies"]["plot"] is not None, "context frequencies")
 
-        # (b) the YOLO and COCO exports.
-        yolo_dir, coco_dir = root / "exports" / "yolo", root / "exports" / "coco"
-        common = ["--parquet", final, "--splits-dir", splits_dir]
-        ey, _ = run_cli_child("multimodal_moe_torch.cli.export_yolo_dataset",
-                              [*common, "--out-dir", yolo_dir], env)
-        check_child(ey, "export_yolo_dataset")
-        ec, _ = run_cli_child("multimodal_moe_torch.cli.export_coco_dataset",
-                              [*common, "--out-dir", coco_dir], env)
-        check_child(ec, "export_coco_dataset")
-        by_id = df.set_index("frame_id")
-        want_lines, got_lines, mismatched, n_ann = 0, 0, [], 0
-        for split, frame_ids in ids.items():
-            for fid in frame_ids:
-                want = kept_boxes(by_id.loc[fid])
-                lines = (yolo_dir / "labels" / split / f"{fid}.txt").read_text().splitlines()
-                ok = len(lines) == want and all(
-                    len(v) == 5 and v[0] == "0" and all(0.0 <= float(x) <= 1.0 for x in v[1:])
-                    for v in (line.split() for line in lines))
-                if not ok:
-                    mismatched.append(fid)
-                want_lines += want
-                got_lines += len(lines)
-            n_ann += len(json.loads((coco_dir / "annotations" / f"instances_{split}.json")
-                                    .read_text())["annotations"])
-        links = {name: symlinks_resolve(d / "images") for name, d in (("yolo", yolo_dir),
-                                                                       ("coco", coco_dir))}
-        manifest = json.loads((coco_dir / "export_manifest.json").read_text())
-        rec["export"] = {"yolo": ey, "coco": ec, "label_lines": got_lines,
-                         "kept_boxes": want_lines, "coco_annotations": n_ann,
-                         "symlinks": links, "mismatched_frames": mismatched[:10],
-                         "coco_images": sum(s["n_images_written"] for s in manifest["splits"])}
-        check(not mismatched and got_lines == want_lines > 0, f"labels {rec['export']}")
-        check(n_ann == want_lines, f"COCO annotations {n_ann} against {want_lines} kept boxes")
-        check(all(v == (INGEST_FRAMES, INGEST_FRAMES) for v in links.values())
-              and rec["export"]["coco_images"] == INGEST_FRAMES, f"image symlinks {links}")
+    # (b) the YOLO and COCO exports.
+    yolo_dir, coco_dir = root / "exports" / "yolo", root / "exports" / "coco"
+    common = ["--parquet", final, "--splits-dir", splits_dir]
+    ey, _ = run_cli_child("multimodal_moe_torch.cli.export_yolo_dataset",
+                          [*common, "--out-dir", yolo_dir], env)
+    check_child(ey, "export_yolo_dataset")
+    ec, _ = run_cli_child("multimodal_moe_torch.cli.export_coco_dataset",
+                          [*common, "--out-dir", coco_dir], env)
+    check_child(ec, "export_coco_dataset")
+    by_id = df.set_index("frame_id")
+    want_lines, got_lines, mismatched, n_ann = 0, 0, [], 0
+    for split, frame_ids in ids.items():
+        for fid in frame_ids:
+            want = kept_boxes(by_id.loc[fid])
+            lines = (yolo_dir / "labels" / split / f"{fid}.txt").read_text().splitlines()
+            ok = len(lines) == want and all(
+                len(v) == 5 and v[0] == "0" and all(0.0 <= float(x) <= 1.0 for x in v[1:])
+                for v in (line.split() for line in lines))
+            if not ok:
+                mismatched.append(fid)
+            want_lines += want
+            got_lines += len(lines)
+        n_ann += len(json.loads((coco_dir / "annotations" / f"instances_{split}.json")
+                                .read_text())["annotations"])
+    links = {name: symlinks_resolve(d / "images") for name, d in (("yolo", yolo_dir),
+                                                                   ("coco", coco_dir))}
+    manifest = json.loads((coco_dir / "export_manifest.json").read_text())
+    rec["export"] = {"yolo": ey, "coco": ec, "label_lines": got_lines,
+                     "kept_boxes": want_lines, "coco_annotations": n_ann,
+                     "symlinks": links, "mismatched_frames": mismatched[:10],
+                     "coco_images": sum(s["n_images_written"] for s in manifest["splits"])}
+    check(not mismatched and got_lines == want_lines > 0, f"labels {rec['export']}")
+    check(n_ann == want_lines, f"COCO annotations {n_ann} against {want_lines} kept boxes")
+    check(all(v == (INGEST_FRAMES, INGEST_FRAMES) for v in links.values())
+          and rec["export"]["coco_images"] == INGEST_FRAMES, f"image symlinks {links}")
 
-        runs = root / "runs"
-        dims = ["--img-h", IMG_H, "--img-w", IMG_W]
-        val_batches = -(-sizes["val"] // YOLO_B)
-        test_batches = -(-sizes["test"] // YOLO_B)
+    runs = root / "runs"
+    dims = ["--img-h", IMG_H, "--img-w", IMG_W]
+    val_batches = -(-sizes["val"] // YOLO_B)
+    test_batches = -(-sizes["test"] // YOLO_B)
 
-        # (c) train_yolo on the YOLO export, validating on its val split.
-        yolo, _ = run_cli_child("multimodal_moe_torch.cli.train_yolo",
-                                ["--data-yaml", yolo_dir / "dataset.yaml", "--epochs", 1,
-                                 "--project", runs, "--name", "yolo", *dims], env)
-        check_child(yolo, "train_yolo --data-yaml")
-        rec["train_yolo"] = {**yolo, **run_summary(runs / "yolo"),
-                             "steps": sizes["train"] // YOLO_B}
-        check(np.isfinite(rec["train_yolo"]["loss"]) and rec["train_yolo"]["files_ok"],
-              f"train_yolo: {rec['train_yolo']}")
-        check(yolo["launches"]["nms_keep"] == val_batches, f"train_yolo B1 {yolo['launches']}")
+    # (c) train_yolo on the YOLO export, validating on its val split.
+    yolo, _ = run_cli_child("multimodal_moe_torch.cli.train_yolo",
+                            ["--data-yaml", yolo_dir / "dataset.yaml", "--epochs", 1,
+                             "--project", runs, "--name", "yolo", *dims], env)
+    check_child(yolo, "train_yolo --data-yaml")
+    rec["train_yolo"] = {**yolo, **run_summary(runs / "yolo"),
+                         "steps": sizes["train"] // YOLO_B}
+    check(np.isfinite(rec["train_yolo"]["loss"]) and rec["train_yolo"]["files_ok"],
+          f"train_yolo: {rec['train_yolo']}")
+    check(yolo["launches"]["nms_keep"] == val_batches, f"train_yolo B1 {yolo['launches']}")
 
-        # (d) train_moe on the port's parquet and splits: over the epoch the
-        # child's routers get, frame for frame, the solar bin ids of the
-        # port's column on the train split (its whole train split when the
-        # batch divides it, as 128 / 16 does; the loader drops a last partial
-        # batch).
-        moe, moe_log = run_cli_child("multimodal_moe_torch.cli.train_moe",
-                                     [*common, "--epochs", 1, "--project", runs, "--name",
-                                      "moe", *dims], {**env, "CHIP_SMOKE_CONTEXT_IDS": "1"})
-        check_child(moe, "train_moe")
-        routed = [json.loads(line[len("[context_ids] "):]) for line in moe_log.splitlines()
-                  if line.startswith("[context_ids] ")]
-        want = Counter(SOLAR_BIN_TO_ID[label] for label in by_id.loc[ids["train"],
-                                                                      "solar_context_bin"])
-        got = Counter(routed[-1]) if routed else Counter()
-        rec["train_moe"] = {**moe, **run_summary(runs / "moe"),
-                            "routed_solar_ids": dict(sorted(got.items())),
-                            "train_split_solar_ids": dict(sorted(want.items()))}
-        check(np.isfinite(rec["train_moe"]["loss"]) and rec["train_moe"]["files_ok"],
-              f"train_moe: {rec['train_moe']}")
-        check(moe["launches"]["nms_keep"] == val_batches, f"train_moe B1 {moe['launches']}")
-        check(got <= want and got.total() == sizes["train"] // YOLO_B * YOLO_B
-              and len(got) >= 3,
-              f"routed solar ids {dict(got)}, the train split's column {dict(want)}")
+    # (d) train_moe on the port's parquet and splits: over the epoch the
+    # child's routers get, frame for frame, the solar bin ids of the
+    # port's column on the train split (its whole train split when the
+    # batch divides it, as 128 / 16 does; the loader drops a last partial
+    # batch).
+    moe, moe_log = run_cli_child("multimodal_moe_torch.cli.train_moe",
+                                 [*common, "--epochs", 1, "--project", runs, "--name",
+                                  "moe", *dims], {**env, "CHIP_SMOKE_CONTEXT_IDS": "1"})
+    check_child(moe, "train_moe")
+    routed = [json.loads(line[len("[context_ids] "):]) for line in moe_log.splitlines()
+              if line.startswith("[context_ids] ")]
+    want = Counter(SOLAR_BIN_TO_ID[label] for label in by_id.loc[ids["train"],
+                                                                  "solar_context_bin"])
+    got = Counter(routed[-1]) if routed else Counter()
+    rec["train_moe"] = {**moe, **run_summary(runs / "moe"),
+                        "routed_solar_ids": dict(sorted(got.items())),
+                        "train_split_solar_ids": dict(sorted(want.items()))}
+    check(np.isfinite(rec["train_moe"]["loss"]) and rec["train_moe"]["files_ok"],
+          f"train_moe: {rec['train_moe']}")
+    check(moe["launches"]["nms_keep"] == val_batches, f"train_moe B1 {moe['launches']}")
+    check(got <= want and got.total() == sizes["train"] // YOLO_B * YOLO_B
+          and len(got) >= 3,
+          f"routed solar ids {dict(got)}, the train split's column {dict(want)}")
 
-        # (e) eval_detector on (d)'s run over the test split.
-        ev, _ = run_cli_child("multimodal_moe_torch.cli.eval_detector",
-                              [*common, "--backend", "moe", "--weights", runs / "moe",
-                               "--split", "test", "--run-name", "ingest", *dims], env)
-        check_child(ev, "eval_detector")
-        metrics = json.loads((root / "eval" / "moe" / "ingest" / "metrics.json").read_text())
-        own = {"params_total", "flops_g", "fps_inference_only", "speed_total_ms_per_img",
-               "fps_end_to_end", "curves_results"}
-        rec["eval_detector"] = {**ev, "n_images": metrics["n_images"],
-                                "map50": metrics.get("map50"),
-                                "speed_inference_ms_per_img": metrics["speed_inference_ms_per_img"],
-                                "extra_keys": sorted(set(metrics) - evaluate_keys)}
-        check(ev["launches"]["nms_keep"] == test_batches and metrics["n_images"] == sizes["test"],
-              f"eval_detector: B1 {ev['launches']}, {metrics['n_images']} images")
-        check(set(metrics) - own == evaluate_keys
-              and rec["eval_detector"]["extra_keys"] == cli_extra_keys,
-              f"eval keys {sorted(set(metrics) ^ (evaluate_keys | own))}")
-        children = [build, qa_run, freq, ey, ec, yolo, moe, ev]
-        rec["launches"] = {k: sum(c["launches"][k] for c in children)
-                           for k in [*kernel_counts(), "gmm_transposed"]}
+    # (e) eval_detector on (d)'s run over the test split.
+    ev, _ = run_cli_child("multimodal_moe_torch.cli.eval_detector",
+                          [*common, "--backend", "moe", "--weights", runs / "moe",
+                           "--split", "test", "--run-name", "ingest", *dims], env)
+    check_child(ev, "eval_detector")
+    metrics = json.loads((work / "eval" / "moe" / "ingest" / "metrics.json").read_text())
+    own = {"params_total", "flops_g", "fps_inference_only", "speed_total_ms_per_img",
+           "fps_end_to_end", "curves_results"}
+    rec["eval_detector"] = {**ev, "n_images": metrics["n_images"],
+                            "map50": metrics.get("map50"),
+                            "speed_inference_ms_per_img": metrics["speed_inference_ms_per_img"],
+                            "extra_keys": sorted(set(metrics) - evaluate_keys)}
+    check(ev["launches"]["nms_keep"] == test_batches and metrics["n_images"] == sizes["test"],
+          f"eval_detector: B1 {ev['launches']}, {metrics['n_images']} images")
+    check(set(metrics) - own == evaluate_keys
+          and rec["eval_detector"]["extra_keys"] == cli_extra_keys,
+          f"eval keys {sorted(set(metrics) ^ (evaluate_keys | own))}")
+    children = [build, qa_run, freq, ey, ec, yolo, moe, ev]
+    rec["launches"] = {k: sum(c["launches"][k] for c in children)
+                       for k in [*kernel_counts(), "gmm_transposed"]}
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    return rec
+
+
+# --------------------------------------------------------------------------
+# Phase 24: tools -- the load test against the port's server, the host
+# tools, and train_vision_baseline on two ranks
+# --------------------------------------------------------------------------
+
+LOAD_LEVELS, LOAD_DURATION_S = "1,16", 3   # the CLI's defaults otherwise
+LOAD_RUNS = (("yolo_raw", "yolo", LOAD_LEVELS, ["--raw"]),
+             ("moe_raw", "moe", LOAD_LEVELS, ["--raw"]),
+             ("yolo_jpeg", "yolo", "16", []),
+             ("yolo_int8", "yolo", "16", ["--int8", "--raw"]))
+LOAD_FAMILIES = {"yolo": {"family": "yolo", "variant": "s"},
+                 "moe": {"family": "moe", "variant": "s", "num_experts": 4}}
+VISION_RANKS, VISION_SUBSET, VISION_LOCAL_B = 2, 64, 16   # global B=32, two steps
+VISION_IMG = 256          # the CLI's --img-size default
+VISION_RTOL = 1e-4        # the loss's tolerance, and the gradient norm's floor
+# The gradient norm moves with the order of the batch's rows alone (Flax's
+# fast variance at random init, through ResNet-50's 53 BatchNorms: on the
+# H100 4.1e-4 to 6.5e-4 between three orders of one batch, the ranks'
+# split 1.5e-3), so the ranks' norm is held to this many times the largest
+# difference between the one-process steps on three orders of the batch.
+VISION_NOISE_FACTOR = 5.0
+TOOLS_HOST_PACKAGES = ("nbformat", "nbclient", "matplotlib")
+
+
+def first_step_recorder(cli) -> dict:
+    """Wrap ``cli.loss_and_grads`` (``train_vision_baseline``'s) to record
+    its first call: the loss, the accuracy, the gradient's norm (summed
+    over the ranks, before the update), the batch on the host."""
+    first, real = {}, cli.loss_and_grads
+
+    def recording(model, images_u8, labels, mesh=None):
+        loss, acc, grads = real(model, images_u8, labels, mesh)
+        if not first:
+            norm = torch.sqrt(sum((g.double() ** 2).sum() for g in grads.values()))
+            first.update(loss=float(loss), acc=float(acc), grad_norm=float(norm),
+                         images=images_u8.cpu(), labels=labels.cpu())
+        return loss, acc, grads
+
+    cli.loss_and_grads = recording
+    return first
+
+
+def vision_rank(work: Path) -> int:
+    """One rank of the ``tools`` phase's ``train_vision_baseline``
+    (``chip_smoke.py --vision-rank DIR``, started by ``run_ranks``): the
+    CLI's ``main`` on ``args.json``'s arguments over gloo (two ranks share
+    the card), TF32 off; its first step, output and kernel counts to
+    ``rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from multimodal_moe_torch.cli import train_vision_baseline
+    from multimodal_moe_torch.cli._common import platform_device
+    from multimodal_moe_torch.parallel.distributed import loader_shard, maybe_initialize_distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    maybe_initialize_distributed(backend="gloo", device=platform_device())
+    rank, _ = loader_shard()
+    first = first_step_recorder(train_vision_baseline)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        train_vision_baseline.main(json.loads((work / "args.json").read_text()))
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    torch.save({**first, "stdout": out.getvalue(), "wall_s": time.perf_counter() - t0,
+                "launches": kernel_counts()}, work / f"rank{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def load_test_child(name: str, run: Path, levels: str, extra: list, out_dir: Path) -> dict:
+    """``load_test_server`` as a child on ``run``: its levels, checked."""
+    rec, _ = run_cli_child("multimodal_moe_torch.cli.load_test_server",
+                           ["--weights", run, "--concurrency", levels,
+                            "--duration", LOAD_DURATION_S, "--out-dir", out_dir, *extra], {})
+    check_child(rec, f"load_test_server {name}")
+    payload = json.loads((out_dir / "load_test.json").read_text())
+    calls = sum(level["device_calls"] for level in payload["levels"])
+    rec.update(levels=payload["levels"], int8=payload["int8"], window_device_calls=calls)
+    check([level["concurrency"] for level in payload["levels"]] ==
+          [int(c) for c in levels.split(",")], f"load test {name}: levels {payload['levels']}")
+    for level in payload["levels"]:
+        check(level["errors"] == 0 and level["req_s"] > 0 and level["device_calls"] > 0
+              and 1 <= level["mean_batch_fill"] <= YOLO_B, f"load test {name}: level {level}")
+    b1 = rec["launches"]["nms_keep"]
+    check(b1 > 0 and b1 >= calls,
+          f"load test {name}: B1 {b1} launches against {calls} device calls in the windows")
+    return rec
+
+
+def host_tools(work: Path) -> dict:
+    """(b): the host tools in this process on the ``ingest`` corpus and the
+    eval dirs of ``cli`` and ``ingest``; none launches a kernel."""
+    import importlib.util
+
+    import pandas as pd
+
+    from multimodal_moe_torch import paths
+    from multimodal_moe_torch.cli import (print_paths, report_detector_benchmarks,
+                                          sanity_dataloader, vis_boxes)
+
+    def run(main, args) -> "tuple[str, float]":
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            main([str(a) for a in args])
+        return out.getvalue(), time.perf_counter() - t0
+
+    summary = json.loads((work / "ingest" / "corpus" / "corpus_build_summary.json").read_text())
+    final, splits = Path(summary["final_parquet"]), work / "ingest" / "corpus" / "splits"
+    rec = {"host_packages": {m: importlib.util.find_spec(m) is not None
+                             for m in TOOLS_HOST_PACKAGES},
+           "host_lacks": host_lacks()}
+    zero_kernel_counts()
+
+    text, secs = run(sanity_dataloader.main, ["--parquet", final,
+                                              "--split-csv", splits / "train_ids.csv"])
+    lines = text.splitlines()
+    rec["sanity_dataloader"] = {"lines": lines, "wall_s": secs}
+    train = ingest_split_sizes(INGEST_FRAMES)["train"]
+    check(len(lines) == 3 and lines[0] == f"dataset length: {train}"
+          and lines[2].startswith(f"one batch: image (8, {IMG_H}, {IMG_W}, 3),"),
+          f"sanity_dataloader: {lines}")
+
+    bench = work / "tools" / "benchmarks"
+    text, secs = run(report_detector_benchmarks.main,
+                     ["--eval-dir", work / "eval", "--out-dir", bench])
+    found = sorted(f"{d.parent.name}/{d.name}" for d in (work / "eval").glob("*/*")
+                   if (d / "metrics.json").exists() or (d / "run_metadata.json").exists())
+    table = pd.read_csv(bench / "baseline_runs_aggregated.csv")
+    rec["report_detector_benchmarks"] = {
+        "runs": [f"{f}/{r}" for f, r in zip(table["family"], table["run"])],
+        "eval_run_dirs": found, "wall_s": secs,
+        "plots": "written" if "Wrote plots" in text else
+        ("skipped" if "skipped plots" in text else None)}
+    check(rec["report_detector_benchmarks"]["runs"] == found and len(found) == 3
+          and rec["report_detector_benchmarks"]["plots"] is not None,
+          f"report_detector_benchmarks: {rec['report_detector_benchmarks']}")
+
+    df = pd.read_parquet(final)
+    both = df[(df["ped_count_clear"] > 0) & (df["ped_count_unclear"] > 0)]
+    pool = len(both) if len(both) >= 12 else int((df["ped_count_clear"] > 0).sum())
+    vis = work / "tools" / "bbox_sanity"
+    text, secs = run(vis_boxes.main, ["--parquet", final, "--out-dir", vis])
+    drawn = sorted(vis.glob("*.jpg"))
+    rec["vis_boxes"] = {"frames": len(drawn), "pool": pool, "wall_s": secs,
+                        "line": text.splitlines()[0]}
+    check(len(drawn) == min(12, pool) > 0
+          and text.startswith(f"Wrote {len(drawn)} annotated frames"), f"vis_boxes: {rec['vis_boxes']}")
+
+    text, secs = run(print_paths.main, [])
+    rec["print_paths"] = {"lines": len(text.splitlines()), "wall_s": secs}
+    check(len(text.splitlines()) == len(paths.describe_paths()) > 0, f"print_paths: {text}")
+    counts = kernel_counts()
+    check(not any(counts.values()), f"the host tools launched kernels: {counts}")
+    return rec
+
+
+def vision_ranks(dev, work: Path, ingest_corpus: Path) -> dict:
+    """(c): ``train_vision_baseline`` on two gloo ranks, then in this
+    process at ``--batch`` 2x on the same global batch; the first steps."""
+    from multimodal_moe_torch.cli import train_vision_baseline as cli
+    from multimodal_moe_torch.models.resnet import resnet50
+    from multimodal_moe_torch.parallel.distributed import run_ranks
+
+    work.mkdir(parents=True)
+
+    def args(batch: int, plot: Path) -> list:
+        return [str(a) for a in (
+            "--parquet", json.loads((ingest_corpus / "corpus_build_summary.json").read_text())[
+                "final_parquet"], "--split-csv", ingest_corpus / "splits" / "train_ids.csv",
+            "--epochs", 1, "--batch", batch, "--subset", VISION_SUBSET,
+            "--img-size", VISION_IMG, "--plot-path", plot)]
+
+    (work / "args.json").write_text(json.dumps(args(VISION_LOCAL_B, work / "plot.png")))
+    t0 = time.perf_counter()
+    run_ranks([sys.executable, str(ROOT / "chip_smoke.py"), "--vision-rank", str(work)],
+              VISION_RANKS, timeout=CLI_TIMEOUT_S, cwd=str(ROOT))
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(VISION_RANKS)]
+
+    real = cli.loss_and_grads
+    tf32 = tf32_state()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        one = first_step_recorder(cli)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            cli.main(args(VISION_LOCAL_B * VISION_RANKS, work / "one" / "plot.png"))
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        cli.loss_and_grads = real
+        # The one-process step on the ranks' rows, in their order and
+        # reversed (the noise of the order alone), and the control: the two
+        # halves each with its own BatchNorm statistics, the losses and
+        # gradients averaged (a mesh without global statistics).
+        orders = {}
+        halves = [(r["images"].to(dev), r["labels"].to(dev)) for r in ranks]
+        images, labels = (torch.cat(t) for t in zip(*halves))
+        model = resnet50(num_classes=2, generator=torch.Generator().manual_seed(0)).to(dev)
+        model.train()
+        for name, parts in (("ranks_order", [(images, labels)]),
+                            ("reversed", [(images.flip(0), labels.flip(0))]),
+                            ("local_statistics", halves)):
+            steps = [real(model, x, y) for x, y in parts]
+            grads = [torch.stack([g[k] for _, _, g in steps]).mean(0) for k in steps[0][2]]
+            orders[name] = {"loss": float(sum(loss for loss, _, _ in steps)) / len(steps),
+                            "grad_norm": float(torch.sqrt(sum((g.double() ** 2).sum()
+                                                              for g in grads)))}
+            del steps, grads
+        del model
+    finally:
+        cli.loss_and_grads = real
+        torch.backends.cudnn.allow_tf32 = tf32["cudnn_allow_tf32"]
+        torch.backends.cuda.matmul.allow_tf32 = tf32["matmul_allow_tf32"]
+    torch.cuda.empty_cache()
+
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    frames = lambda images, labels: sorted(  # noqa: E731
+        (int(im.sum()), int(lb)) for im, lb in zip(images.long(), labels))
+    r0 = ranks[0]
+    rec = {"ranks": VISION_RANKS, "backend": "gloo", "img_size": VISION_IMG, "subset": VISION_SUBSET,
+           "batch_per_rank": VISION_LOCAL_B, "global_batch": VISION_LOCAL_B * VISION_RANKS,
+           "ranks_s": ranks_s, "one_process_s": one_s,
+           "rank_wall_s": [r["wall_s"] for r in ranks],
+           "loss": r0["loss"], "one_process_loss": one["loss"],
+           "grad_norm": r0["grad_norm"], "one_process_grad_norm": one["grad_norm"],
+           "loss_rel_err": rel(r0["loss"], one["loss"]),
+           "grad_norm_rel_err": rel(r0["grad_norm"], one["grad_norm"]),
+           "one_process_by_order": orders,
+           "order_noise": {k: max(rel(a[k], b[k]) for a, b in itertools.combinations(
+               (one, orders["ranks_order"], orders["reversed"]), 2))
+               for k in ("loss", "grad_norm")},
+           "local_statistics_err": {k: rel(orders["local_statistics"][k], one[k])
+                                    for k in ("loss", "grad_norm")},
+           "epoch_lines": [[x for x in r["stdout"].splitlines() if x.startswith("epoch ")]
+                           for r in ranks],
+           "plot": "written" if (work / "plot.png").exists() else
+           ("skipped" if "skipped plot" in r0["stdout"] else None),
+           "launches": [r["launches"] for r in ranks]}
+    check(all(r["loss"] == r0["loss"] and r["grad_norm"] == r0["grad_norm"] for r in ranks),
+          f"the ranks took different steps: {[(r['loss'], r['grad_norm']) for r in ranks]}")
+    check(frames(torch.cat([r["images"] for r in ranks]), torch.cat([r["labels"] for r in ranks]))
+          == frames(one["images"], one["labels"]), "the ranks' global batch is the one process's")
+    rec["grad_norm_tol"] = max(VISION_RTOL, VISION_NOISE_FACTOR * rec["order_noise"]["grad_norm"])
+    check(rec["loss_rel_err"] <= VISION_RTOL and rec["grad_norm_rel_err"] <= rec["grad_norm_tol"],
+          f"train_vision_baseline on two ranks: {rec}")
+    control = rec["local_statistics_err"]
+    check(control["loss"] > VISION_RTOL or control["grad_norm"] > rec["grad_norm_tol"],
+          f"the check passes a step without global BatchNorm statistics: {rec}")
+    check(rec["epoch_lines"][0] == rec["epoch_lines"][1] and len(rec["epoch_lines"][0]) == 1
+          and rec["plot"] is not None and "plot" not in ranks[1]["stdout"],
+          f"train_vision_baseline ranks' output: {rec}")
+    check(not any(v for r in ranks for v in r["launches"].values()),
+          f"train_vision_baseline launched kernels: {rec['launches']}")
+    return rec
+
+
+def phase_tools(dev, smi: str, work: Path) -> dict:
+    """The load test on the card, the host tools, ``train_vision_baseline``
+    on two ranks."""
+    t0 = time.perf_counter()
+    rec = {"phase": "tools", "gpu": smi, "img_hw": [IMG_H, IMG_W], "batch": YOLO_B,
+           "duration_s": LOAD_DURATION_S, "load_test": {}}
+    root = work / "tools"
+    root.mkdir()
+    runs = {name: write_run_dir(root / "runs", cfg) for name, cfg in LOAD_FAMILIES.items()}
+    for name, family, levels, extra in LOAD_RUNS:
+        rec["load_test"][name] = load_test_child(name, runs[family], levels, extra,
+                                                 root / "load" / name)
+    rec["load_test_s"] = time.perf_counter() - t0
+    rec["host"] = host_tools(work)
+    rec["vision_ranks"] = vision_ranks(dev, root / "vision", work / "ingest" / "corpus")
+    rec["launches"] = {k: sum(c["launches"][k] for c in rec["load_test"].values())
+                       for k in [*kernel_counts(), "gmm_transposed"]}
     rec["seconds"] = time.perf_counter() - t0
     emit(rec)
     return rec
@@ -5807,6 +6118,8 @@ def run_summary(run: Path) -> dict:
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--multigpu-rank":
         return multigpu_rank(Path(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--vision-rank":
+        return vision_rank(Path(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 1
@@ -5895,7 +6208,9 @@ def main() -> int:
     phase_yolo_train(dev, smi)
     data = phase_data(dev, smi, moe_train["dispatch"]["gmm"])
     multigpu = phase_multigpu(dev, smi)
-    cli = phase_cli(dev, smi, set(evaluation["models"]["moe"]["metrics"]))
+    work_dir = tempfile.TemporaryDirectory()   # what cli and ingest write, tools reads
+    work = Path(work_dir.name)
+    cli = phase_cli(dev, smi, set(evaluation["models"]["moe"]["metrics"]), work)
     nms_entry["cli_launches"] = {
         "train_moe_validation": [r["launches"]["nms_keep"] for r in cli["train_moe"]["runs"]],
         "train_rtdetr": cli["train_rtdetr"]["launches"]["nms_keep"],
@@ -5917,7 +6232,7 @@ def main() -> int:
     nms_entry["cli_launches"]["analyze_moe_routing"] = \
         cli["analyze_moe_routing"]["launches"]["nms_keep"]
     ingest = phase_ingest(smi, set(evaluation["models"]["moe"]["metrics"]),
-                          cli["eval_detector"]["extra_keys"])
+                          cli["eval_detector"]["extra_keys"], work)
     nms_entry["ingest_launches"] = {
         "train_yolo_validation": ingest["train_yolo"]["launches"]["nms_keep"],
         "train_moe_validation": ingest["train_moe"]["launches"]["nms_keep"],
@@ -5926,6 +6241,17 @@ def main() -> int:
     ffn_entry["ingest_launches"] = ingest["launches"]["moe_ffn_fwd"]
     deform_entry["ingest_launches"] = ingest["launches"]["ms_deform_fwd"]
     bwd_entry["ingest_launches"] = ingest["launches"]["ms_deform_bwd"]
+    tools = phase_tools(dev, smi, work)
+    work_dir.cleanup()
+    # B1 once a device call of the load test's children; no other kernel
+    # runs on the tools path (YOLO-s and MoE-YOLO-s on ``auto``).
+    nms_entry["tools_launches"] = tools["launches"]["nms_keep"]
+    nms_entry["tools_launches_by_run"] = {
+        name: {"launches": c["launches"]["nms_keep"], "window_device_calls": c["window_device_calls"]}
+        for name, c in tools["load_test"].items()}
+    ffn_entry["tools_launches"] = tools["launches"]["moe_ffn_fwd"]
+    deform_entry["tools_launches"] = tools["launches"]["ms_deform_fwd"]
+    bwd_entry["tools_launches"] = tools["launches"]["ms_deform_bwd"]
     counts = moe_train["dispatch"]["gmm"]["launches_per_step"]
     gmm_entries = gmm_kernel_entries(gmm_cases, {
         "gmm": counts["gmm_forward"], "gmm_transposed": counts["gmm"] - counts["gmm_forward"],
@@ -5945,6 +6271,10 @@ def main() -> int:
             "gmm": ingest["launches"]["gmm"] - ingest["launches"]["gmm_transposed"],
             "gmm_transposed": ingest["launches"]["gmm_transposed"],
             "tgmm": ingest["launches"]["tgmm"]}[entry["name"]]
+        entry["tools_launches"] = {
+            "gmm": tools["launches"]["gmm"] - tools["launches"]["gmm_transposed"],
+            "gmm_transposed": tools["launches"]["gmm_transposed"],
+            "tgmm": tools["launches"]["tgmm"]}[entry["name"]]
     emit({"kernels": [nms_entry, deform_entry, bwd_entry, ffn_entry, *gmm_entries]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi_line(), flush=True)

@@ -27,6 +27,10 @@ intra-op threads a rank. Cases:
   ``remat_in.pt``'s global batch, with ``remat=True`` and with
   ``remat=False``: the recompute runs BatchNorm's all-reduce again during
   backward, in the same order on every rank.
+* ``vision`` -- ``cli/train_vision_baseline.py``'s ``main`` with
+  ``vision_args.json``'s arguments on the ranks' data mesh; its first
+  step's batch, loss, accuracy, reduced gradients and BatchNorm running
+  statistics (recorded around ``loss_and_grads``), and its stdout.
 """
 
 from __future__ import annotations
@@ -339,7 +343,43 @@ def case_remat(work: Path, rank: int, world: int) -> dict:
     return out
 
 
-CASES = {"cluster": case_cluster, "moe": case_moe, "train": case_train, "remat": case_remat}
+def recording_first_step(cli) -> dict:
+    """Wrap ``cli.loss_and_grads`` to record its first call: the batch, the
+    loss, the accuracy, the gradients and the BatchNorm running
+    statistics after the forward."""
+    first, real = {}, cli.loss_and_grads
+
+    def recording(model, images_u8, labels, mesh=None):
+        loss, acc, grads = real(model, images_u8, labels, mesh)
+        if not first:
+            first.update(
+                images=images_u8.clone(), labels=labels.clone(), loss=float(loss),
+                acc=float(acc), grads={k: g.detach().clone() for k, g in grads.items()},
+                stats={k: b.detach().clone() for k, b in model.named_buffers()
+                       if k.endswith(("running_mean", "running_var"))},
+                mesh=None if mesh is None else (mesh.num_data, mesh.num_expert))
+        return loss, acc, grads
+
+    cli.loss_and_grads = recording
+    return first
+
+
+def case_vision(work: Path, rank: int, world: int) -> dict:
+    import contextlib
+    import io
+    import json
+
+    from multimodal_moe_torch.cli import train_vision_baseline as cli
+
+    first = recording_first_step(cli)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(json.loads((work / "vision_args.json").read_text()))
+    return {**first, "stdout": out.getvalue()}
+
+
+CASES = {"cluster": case_cluster, "moe": case_moe, "train": case_train, "remat": case_remat,
+         "vision": case_vision}
 
 
 def main() -> None:

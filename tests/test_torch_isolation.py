@@ -3,7 +3,8 @@
 ``multimodal_moe_tpu``; the training, evaluation, data, ingestion and
 serving modules and the CLIs are among those imported. No module imports
 ``sklearn`` (the card's host lacks it: the splits are the port's own numpy),
-and none imports tqdm at module level (it is optional). The data modules
+and none imports tqdm, nbformat or nbclient at module level (they are
+optional; ``build_qa_notebooks`` imports the last two when it builds). The data modules
 import pandas, pyarrow and PIL only inside the functions that use them, so
 importing the port needs none of them."""
 
@@ -16,7 +17,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "multimodal_moe_tpu", "sklearn")
-OPTIONAL = ("tqdm",)     # imported inside the function that uses it, if at all
+OPTIONAL = ("tqdm", "nbformat", "nbclient")   # imported inside the functions that use them
 # Modules that must be among those the child imports (the training, the
 # evaluation, the data and the serving modules, the CLIs).
 REQUIRED = ("multimodal_moe_torch.losses.hungarian", "multimodal_moe_torch.ops.assignment",
@@ -46,7 +47,12 @@ REQUIRED = ("multimodal_moe_torch.losses.hungarian", "multimodal_moe_torch.ops.a
             "multimodal_moe_torch.cli.export_coco_dataset",
             "multimodal_moe_torch.cli.analyze_index_qa",
             "multimodal_moe_torch.cli.analyze_context_frequencies",
-            "multimodal_moe_torch.cli.build_synth_corpus")
+            "multimodal_moe_torch.cli.build_synth_corpus",
+            "multimodal_moe_torch.cli.load_test_server",
+            "multimodal_moe_torch.cli.sanity_dataloader",
+            "multimodal_moe_torch.cli.report_detector_benchmarks",
+            "multimodal_moe_torch.cli.vis_boxes", "multimodal_moe_torch.cli.print_paths",
+            "multimodal_moe_torch.cli.build_qa_notebooks")
 
 _CHILD = """
 import importlib, pkgutil, sys
@@ -110,8 +116,8 @@ def test_no_forbidden_import_statement():
 
 
 def test_optional_packages_load_lazily():
-    """No import of tqdm stands at module level (torch itself loads tqdm,
-    so ``sys.modules`` cannot show it)."""
+    """No import of tqdm, nbformat or nbclient stands at module level
+    (torch itself loads tqdm, so ``sys.modules`` cannot show it)."""
     for path in _sources():
         tree = ast.parse(path.read_text(), filename=str(path))
         nested = {id(n) for f in ast.walk(tree)
