@@ -41,6 +41,13 @@ one token), and the partial combine is summed over the expert group, each
 rank keeping its own rows. Top-k over probabilities uses ``stable_topk``
 (``lax.top_k``'s order: lower index first among ties), never
 ``torch.topk``.
+
+Under a profiler (``utils.profiler.annotate``) each ``MoEFFN`` call is the
+span ``moe.level``; in one process it holds ``moe.route`` (the gate and the
+top-k route) and ``moe.experts`` (the experts and the combine), which
+counts ``routed_rows`` (T·k) and ``computed_rows``, the rows its experts
+run: T·E for the sweeps, T·k for ``gmm``, the E·C capacity slots for
+``dense`` and ``sparse``.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from ..ops.int8_conv import int_mm
 from ..ops.nms import stable_topk
 from ..parallel.mesh import EXPERT_AXIS, active_mesh, expert_rows
 from ..quant import QT, record, recording, register_quant
+from ..utils.profiler import annotate
 
 # 5 labelled solar-elevation bins + "missing" (data/solar.py of the JAX package).
 NUM_SOLAR_BINS = 6
@@ -443,20 +451,31 @@ class MoEFFN(nn.Module):
         if quant != self.int8 or not quant and not tokens.is_floating_point():
             raise TypeError("int8 tokens come as a quant.QT (codes and scale) to a MoEFFN "
                             "built with int8=True; fp tokens to one built without")
-        if quant:
+        with annotate("moe.level"):
+            if quant:
+                return self._forward_int8(tokens, context_ids)
+            mesh = active_mesh()
+            if mesh is not None:
+                return self._forward_on_mesh(tokens, context_ids, mesh)
+            return self._forward_local(tokens, context_ids)
+
+    def _forward_int8(self, tokens, context_ids):
+        """The w8a8 sweep: every expert over every token."""
+        t, e = tokens.q.shape[0], self.num_experts
+        with annotate("moe.route"):
             tokens_fp = tokens.q.float() * tokens.s
             logits = self.router(tokens_fp, context_ids)
             topk_idx, gates, aux_loss, expert_load = route_top_k_dropless(logits, k=self.k)
+        with annotate("moe.experts", routed_rows=t * self.k, computed_rows=t * e):
             out = moe_apply_sweep_int8(tokens.q, tokens.s, topk_idx, gates, self.w1_q, self.s_w1,
                                        self.b1, self.s_mid, self.w2_q, self.s_w2, self.b2)
-            return tokens_fp + out, {"moe_aux_loss": aux_loss, "expert_load": expert_load}
-        mesh = active_mesh()
-        if mesh is not None:
-            return self._forward_on_mesh(tokens, context_ids, mesh)
+        return tokens_fp + out, {"moe_aux_loss": aux_loss, "expert_load": expert_load}
+
+    def _forward_local(self, tokens, context_ids):
+        """One process: the route, then the dispatch mode's experts and combine."""
         t = tokens.shape[0]
         e = self.num_experts
         capacity = max(int(t * self.k * self.capacity_factor / e), self.k)
-        logits = self.router(tokens, context_ids)
         w1, b1, w2, b2 = self.experts_w1, self.experts_b1, self.experts_w2, self.experts_b2
         if recording():
             # The sweep's mid activation over all tokens, one expert at a time.
@@ -465,25 +484,34 @@ class MoEFFN(nn.Module):
             record(self, "mid_absmax", mid_absmax)
 
         mode = resolve_dispatch(self.dispatch, t, e)
+        if mode == "sparse" and self.use_fused_ffn:
+            capacity = moe_kernels.round_up_capacity(capacity)
+        # The rows the experts run: every token for the sweep, the routed
+        # pairs for gmm, the capacity slots for dense and sparse.
+        computed = {"sweep": t * e, "gmm": t * self.k}.get(mode, e * capacity)
         x = tokens.to(self.dtype)
-        if mode in ("gmm", "sweep"):
-            topk_idx, gates, aux_loss, expert_load = route_top_k_dropless(logits, k=self.k)
-            apply = moe_apply_gmm if mode == "gmm" else moe_apply_sweep
-            out = apply(x, topk_idx, gates, w1, b1, w2, b2)
-        elif mode == "dense":
-            r = route_top_k(logits, k=self.k, capacity=capacity)
-            expert_in = torch.einsum("tec,td->ecd", r.dispatch.to(x.dtype), x)
-            mid = F.silu(torch.bmm(expert_in, w1.to(x.dtype)) + b1.to(x.dtype))
-            expert_out = torch.bmm(mid, w2.to(x.dtype)) + b2.to(x.dtype)
-            out = torch.einsum("tec,ecd->td", r.combine.to(x.dtype), expert_out)
-            aux_loss, expert_load = r.aux_loss, r.expert_load
-        else:
-            if self.use_fused_ffn:
-                capacity = moe_kernels.round_up_capacity(capacity)
-            rd = route_top_k_sparse(logits, k=self.k, capacity=capacity)
-            out = moe_apply_sparse(x, rd, w1, b1, w2, b2, capacity=capacity,
-                                   use_fused_ffn=self.use_fused_ffn)
-            aux_loss, expert_load = rd.aux_loss, rd.expert_load
+        with annotate("moe.route"):
+            logits = self.router(tokens, context_ids)
+            if mode in ("gmm", "sweep"):
+                topk_idx, gates, aux_loss, expert_load = route_top_k_dropless(logits, k=self.k)
+            elif mode == "dense":
+                r = route_top_k(logits, k=self.k, capacity=capacity)
+                aux_loss, expert_load = r.aux_loss, r.expert_load
+            else:
+                rd = route_top_k_sparse(logits, k=self.k, capacity=capacity)
+                aux_loss, expert_load = rd.aux_loss, rd.expert_load
+        with annotate("moe.experts", routed_rows=t * self.k, computed_rows=computed):
+            if mode in ("gmm", "sweep"):
+                apply = moe_apply_gmm if mode == "gmm" else moe_apply_sweep
+                out = apply(x, topk_idx, gates, w1, b1, w2, b2)
+            elif mode == "dense":
+                expert_in = torch.einsum("tec,td->ecd", r.dispatch.to(x.dtype), x)
+                mid = F.silu(torch.bmm(expert_in, w1.to(x.dtype)) + b1.to(x.dtype))
+                expert_out = torch.bmm(mid, w2.to(x.dtype)) + b2.to(x.dtype)
+                out = torch.einsum("tec,ecd->td", r.combine.to(x.dtype), expert_out)
+            else:
+                out = moe_apply_sparse(x, rd, w1, b1, w2, b2, capacity=capacity,
+                                       use_fused_ffn=self.use_fused_ffn)
         aux = {"moe_aux_loss": aux_loss, "expert_load": expert_load}
         return tokens + out.to(tokens.dtype), aux
 

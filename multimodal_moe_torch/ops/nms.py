@@ -14,7 +14,9 @@ Counterpart of ``multimodal_moe_tpu/ops/nms.py``, with the same contract:
 On a CUDA tensor the suppression is the hand-written kernel
 (:func:`.nms_kernel.nms_keep_mask`) followed by a stable compaction of the
 keep mask; on a CPU tensor it is :func:`_batched_nms_plain`, which mirrors
-the JAX ``_single_image_nms`` scan step by step.
+the JAX ``_single_image_nms`` scan step by step. On both, the stages are
+the spans ``nms.preselect``, ``nms.keep`` and ``nms.compact`` under a
+profiler (``utils.profiler.annotate``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiler import annotate
 from .boxes import pairwise_iou
 from .nms_kernel import nms_keep_mask
 
@@ -72,31 +75,34 @@ def _batched_nms_plain(
     first argmax of the still-alive scores and kills its overlaps. With
     ``early_exit`` the loop stops once no image has a candidate left; the
     untouched tail equals what the remaining steps would emit."""
-    top_boxes, top_scores, top_classes = _preselect(
-        boxes, scores, classes,
-        score_threshold=score_threshold, num_candidates=num_candidates,
-    )
-    b, k = top_scores.shape
-    iou = pairwise_iou(top_boxes, top_boxes)
-    if not class_agnostic:
-        iou = torch.where(top_classes[:, :, None] == top_classes[:, None, :], iou, 0.0)
-    overlaps = iou >= iou_threshold
-    rows = torch.arange(b, device=boxes.device)
-    cols = torch.arange(k, device=boxes.device)
+    with annotate("nms.preselect"):
+        top_boxes, top_scores, top_classes = _preselect(
+            boxes, scores, classes,
+            score_threshold=score_threshold, num_candidates=num_candidates,
+        )
+    with annotate("nms.keep"):
+        b, k = top_scores.shape
+        iou = pairwise_iou(top_boxes, top_boxes)
+        if not class_agnostic:
+            iou = torch.where(top_classes[:, :, None] == top_classes[:, None, :], iou, 0.0)
+        overlaps = iou >= iou_threshold
+        rows = torch.arange(b, device=boxes.device)
+        cols = torch.arange(k, device=boxes.device)
 
-    picks = torch.zeros((b, max_det), dtype=torch.long, device=boxes.device)
-    pick_valid = torch.zeros((b, max_det), dtype=torch.bool, device=boxes.device)
-    alive = top_scores.clone()
-    for step in range(max_det):
-        if early_exit and not bool((alive > NEG_INF / 2).any()):
-            break
-        pick = alive.argmax(dim=1)
-        picked_valid = alive[rows, pick] > NEG_INF / 2
-        suppress = overlaps[rows, pick] | (cols[None, :] == pick[:, None])
-        alive = torch.where(suppress & picked_valid[:, None], NEG_INF, alive)
-        picks[:, step] = torch.where(picked_valid, pick, 0)
-        pick_valid[:, step] = picked_valid
-    return _finish(top_boxes, top_scores, top_classes, picks, pick_valid)
+        picks = torch.zeros((b, max_det), dtype=torch.long, device=boxes.device)
+        pick_valid = torch.zeros((b, max_det), dtype=torch.bool, device=boxes.device)
+        alive = top_scores.clone()
+        for step in range(max_det):
+            if early_exit and not bool((alive > NEG_INF / 2).any()):
+                break
+            pick = alive.argmax(dim=1)
+            picked_valid = alive[rows, pick] > NEG_INF / 2
+            suppress = overlaps[rows, pick] | (cols[None, :] == pick[:, None])
+            alive = torch.where(suppress & picked_valid[:, None], NEG_INF, alive)
+            picks[:, step] = torch.where(picked_valid, pick, 0)
+            pick_valid[:, step] = picked_valid
+    with annotate("nms.compact"):
+        return _finish(top_boxes, top_scores, top_classes, picks, pick_valid)
 
 
 def _compact(keep: torch.Tensor, max_det: int):
@@ -119,19 +125,22 @@ def _batched_nms_kernel(
     boxes, scores, classes, *, iou_threshold, score_threshold, max_det,
     num_candidates, class_agnostic,
 ) -> NmsResult:
-    top_boxes, top_scores, top_classes = _preselect(
-        boxes, scores, classes,
-        score_threshold=score_threshold, num_candidates=num_candidates,
-    )
-    keep = nms_keep_mask(
-        top_boxes.contiguous(),
-        (top_scores > NEG_INF / 2).to(torch.int32),
-        top_classes.to(torch.int32).contiguous(),
-        iou_threshold=iou_threshold,
-        class_agnostic=class_agnostic,
-    )
-    picks, pick_valid = _compact(keep, max_det)
-    return _finish(top_boxes, top_scores, top_classes, picks, pick_valid)
+    with annotate("nms.preselect"):
+        top_boxes, top_scores, top_classes = _preselect(
+            boxes, scores, classes,
+            score_threshold=score_threshold, num_candidates=num_candidates,
+        )
+    with annotate("nms.keep"):
+        keep = nms_keep_mask(
+            top_boxes.contiguous(),
+            (top_scores > NEG_INF / 2).to(torch.int32),
+            top_classes.to(torch.int32).contiguous(),
+            iou_threshold=iou_threshold,
+            class_agnostic=class_agnostic,
+        )
+    with annotate("nms.compact"):
+        picks, pick_valid = _compact(keep, max_det)
+        return _finish(top_boxes, top_scores, top_classes, picks, pick_valid)
 
 
 def batched_nms(

@@ -14,7 +14,17 @@ behaviour:
   (JPEG/PNG, or ``application/x-mmoe-raw``: H·W·3 uint8 RGB at model
   resolution) returns JSON detections; ``GET /healthz`` (or ``/stats``)
   returns liveness and the serving stats (requests, device calls, batched
-  images, last step ms, errors).
+  images, last step ms, errors, and the cumulative seconds below).
+
+Each stage of a request adds its seconds to a cumulative counter of
+``stats``, whether or not a profiler is active: ``decode_s`` (turning a
+body into a frame of model size: the handler's decode, ``submit``'s
+resize), ``queue_wait_s`` (each request, from ``submit`` until the
+collector starts its batch, ``max_wait_ms`` included), ``assemble_s`` (the
+batch's host array), ``step_s`` (the serving step's call) and
+``readback_s`` (its results to the host). A window's average is the
+difference of two reads. Under a profiler the same stages, and
+``server.respond``, are spans (``utils.profiler.annotate``).
 
 A response never depends on its batch neighbours: convolutions, BatchNorm
 in eval mode and NMS work image by image, so coalescing and zero padding
@@ -24,6 +34,7 @@ change nothing (held by tests/test_torch_server.py, and on the card by
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import threading
@@ -38,12 +49,13 @@ import numpy as np
 import torch
 
 from ._device import model_device
+from .utils.profiler import annotate
 
 _SENTINEL = object()
 
 
 class _Request:
-    __slots__ = ("image", "context_id", "orig_size", "conf", "future")
+    __slots__ = ("image", "context_id", "orig_size", "conf", "future", "t_submit")
 
     def __init__(self, image, context_id, orig_size, conf, future):
         self.image = image            # (img_h, img_w, 3) uint8, model space
@@ -51,6 +63,7 @@ class _Request:
         self.orig_size = orig_size    # (width, height) of the source image
         self.conf = conf              # per-request confidence floor
         self.future = future
+        self.t_submit = time.perf_counter()
 
 
 class BatchingDetector:
@@ -99,6 +112,11 @@ class BatchingDetector:
             "batched_images": 0,
             "last_step_ms": None,
             "errors": 0,
+            "decode_s": 0.0,
+            "queue_wait_s": 0.0,
+            "assemble_s": 0.0,
+            "step_s": 0.0,
+            "readback_s": 0.0,
         }
         self._closed = False
         self._thread = threading.Thread(
@@ -146,12 +164,13 @@ class BatchingDetector:
         if image.shape[:2] != (self.img_h, self.img_w):
             from PIL import Image
 
-            image = np.asarray(
-                Image.fromarray(image.astype(np.uint8)).resize(
-                    (self.img_w, self.img_h), Image.BILINEAR
-                ),
-                np.uint8,
-            )
+            with self.timed("decode"):
+                image = np.asarray(
+                    Image.fromarray(image.astype(np.uint8)).resize(
+                        (self.img_w, self.img_h), Image.BILINEAR
+                    ),
+                    np.uint8,
+                )
         fut: "Future[List[dict]]" = Future()
         self._queue.put(
             _Request(
@@ -165,6 +184,17 @@ class BatchingDetector:
 
     def predict(self, image: np.ndarray, **kw) -> List[dict]:
         return self.submit(image, **kw).result()
+
+    @contextlib.contextmanager
+    def timed(self, stage: str):
+        """Add the block's seconds to ``stats[f"{stage}_s"]``; under a
+        profiler it is the span ``server.<stage>``."""
+        t0 = time.perf_counter()
+        with annotate(f"server.{stage}"):
+            yield
+        dt = time.perf_counter() - t0
+        with self._lock:
+            self.stats[f"{stage}_s"] += dt
 
     def close(self) -> None:
         if not self._closed:
@@ -195,19 +225,25 @@ class BatchingDetector:
             self._run(group)
 
     def _run(self, group: List[_Request]) -> None:
+        t_start = time.perf_counter()
+        with self._lock:
+            self.stats["queue_wait_s"] += sum(t_start - req.t_submit for req in group)
         try:
-            imgs = np.zeros(
-                (self.batch, self.img_h, self.img_w, 3), np.uint8
-            )
-            ctx = np.zeros((self.batch,), np.int32)
-            for i, req in enumerate(group):
-                imgs[i] = req.image
-                ctx[i] = req.context_id
+            with self.timed("assemble"):
+                imgs = np.zeros(
+                    (self.batch, self.img_h, self.img_w, 3), np.uint8
+                )
+                ctx = np.zeros((self.batch,), np.int32)
+                for i, req in enumerate(group):
+                    imgs[i] = req.image
+                    ctx[i] = req.context_id
             t0 = time.perf_counter()
-            res = self._step(imgs, ctx)
-            boxes = res.boxes.cpu().numpy()
-            scores = res.scores.cpu().numpy()
-            valid = res.valid.cpu().numpy()
+            with self.timed("step"):
+                res = self._step(imgs, ctx)
+            with self.timed("readback"):
+                boxes = res.boxes.cpu().numpy()
+                scores = res.scores.cpu().numpy()
+                valid = res.valid.cpu().numpy()
             step_ms = (time.perf_counter() - t0) * 1e3
             with self._lock:
                 self.stats["device_calls"] += 1
@@ -338,9 +374,10 @@ class _Handler(BaseHTTPRequestHandler):
                                  f"got {length}",
                     })
                     return
-                arr = np.frombuffer(body, np.uint8).reshape(
-                    det.img_h, det.img_w, 3
-                )
+                with det.timed("decode"):
+                    arr = np.frombuffer(body, np.uint8).reshape(
+                        det.img_h, det.img_w, 3
+                    )
                 dims = (det.img_w, det.img_h)
                 qs = parse_qs(parsed.query)
                 if "context" in qs:
@@ -348,44 +385,47 @@ class _Handler(BaseHTTPRequestHandler):
                 if "conf" in qs:
                     kw["conf"] = float(qs["conf"][0])
                 dets = det.predict(arr, **kw)
-                self._json(
-                    200,
-                    {"width": dims[0], "height": dims[1], "detections": dets},
-                )
+                with annotate("server.respond"):
+                    self._json(
+                        200,
+                        {"width": dims[0], "height": dims[1], "detections": dets},
+                    )
                 return
             # Fast path: native libjpeg decode straight to model resolution
             # (decode-time resize, no full-res materialization, no PIL);
             # source dims come from the ~µs SOF header probe. The native
             # decoder's parity with PIL is held by
             # tests/test_torch_native_decode.py.
-            arr = None
-            dims = _jpeg_dims(body)
-            if dims is not None:
-                from .data.native_decode import decode_jpeg_bytes, native_available
+            with det.timed("decode"):
+                arr = None
+                dims = _jpeg_dims(body)
+                if dims is not None:
+                    from .data.native_decode import decode_jpeg_bytes, native_available
 
-                if native_available():
-                    arr = decode_jpeg_bytes(body, det.img_h, det.img_w)
-                    kw["orig_size"] = dims
-            if arr is None:
-                from PIL import Image
+                    if native_available():
+                        arr = decode_jpeg_bytes(body, det.img_h, det.img_w)
+                        kw["orig_size"] = dims
+                if arr is None:
+                    from PIL import Image
 
-                with Image.open(io.BytesIO(body)) as im:
-                    arr = np.asarray(im.convert("RGB"), np.uint8)
-                dims = (arr.shape[1], arr.shape[0])
+                    with Image.open(io.BytesIO(body)) as im:
+                        arr = np.asarray(im.convert("RGB"), np.uint8)
+                    dims = (arr.shape[1], arr.shape[0])
             qs = parse_qs(parsed.query)
             if "context" in qs:
                 kw["context_id"] = int(qs["context"][0])
             if "conf" in qs:
                 kw["conf"] = float(qs["conf"][0])
             dets = det.predict(arr, **kw)
-            self._json(
-                200,
-                {
-                    "width": dims[0],
-                    "height": dims[1],
-                    "detections": dets,
-                },
-            )
+            with annotate("server.respond"):
+                self._json(
+                    200,
+                    {
+                        "width": dims[0],
+                        "height": dims[1],
+                        "detections": dets,
+                    },
+                )
         except Exception as e:
             self._json(400, {"error": str(e)[:300]})
 

@@ -4,7 +4,9 @@ Counterpart of ``multimodal_moe_tpu/serving.py``. One step divides by 255,
 runs the detector, applies a float32 sigmoid to the class logits and runs
 batched NMS (the CUDA keep-mask kernel on the card). ``tail="topk"``
 decodes only the top-``pool`` anchors (single class), with results
-bitwise equal to the full tail.
+bitwise equal to the full tail. Under a profiler a step is the span
+``serve.step``, with ``serve.forward`` and ``serve.tail`` inside
+(``utils.profiler.annotate``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 from ._device import model_device
 from .models.yolo import decode_boxes
 from .ops.nms import NEG_INF, NmsResult, batched_nms, stable_topk
+from .utils.profiler import annotate
 
 
 def topk_candidates(
@@ -108,21 +111,23 @@ def make_serving_step(
     )
 
     def step(images_u8, context_ids=None) -> NmsResult:
-        with torch.inference_mode():
-            images = torch.as_tensor(images_u8, device=device).float() / 255.0
-            kwargs = {}
-            if context_aware and context_ids is not None:
-                kwargs["context_ids"] = torch.as_tensor(context_ids, device=device)
-            out = model(images, **kwargs)
-            if "anchor_points" not in out:
+        with torch.inference_mode(), annotate("serve.step"):
+            with annotate("serve.forward"):
+                images = torch.as_tensor(images_u8, device=device).float() / 255.0
+                kwargs = {}
+                if context_aware and context_ids is not None:
+                    kwargs["context_ids"] = torch.as_tensor(context_ids, device=device)
+                out = model(images, **kwargs)
+            with annotate("serve.tail"):
+                if "anchor_points" not in out:
+                    scores = torch.sigmoid(out["cls_logits"][..., 0].float())
+                    return detr_topk_select(
+                        out["boxes"], scores,
+                        max_det=max_det, score_threshold=score_threshold,
+                    )
+                if out["cls_logits"].shape[-1] == 1 and tail == "topk":
+                    return yolo_serving_nms(out, k=pool, **nms_kw)
                 scores = torch.sigmoid(out["cls_logits"][..., 0].float())
-                return detr_topk_select(
-                    out["boxes"], scores,
-                    max_det=max_det, score_threshold=score_threshold,
-                )
-            if out["cls_logits"].shape[-1] == 1 and tail == "topk":
-                return yolo_serving_nms(out, k=pool, **nms_kw)
-            scores = torch.sigmoid(out["cls_logits"][..., 0].float())
-            return batched_nms(out["boxes"], scores, num_candidates=pool, **nms_kw)
+                return batched_nms(out["boxes"], scores, num_candidates=pool, **nms_kw)
 
     return step

@@ -8,6 +8,10 @@ forward in train mode (ground truth and denoising draws for a model with
 ``denoising_capable``, ``context_ids`` for one with ``context_aware``), the
 loss, its gradients, ``TrainState.apply_gradients``. Random draws come from
 ``torch.Generator``s seeded from ``(seed, step)``; they are not JAX's.
+Under a profiler the step is the span ``train.step``, with
+``train.augment``, ``train.forward``, ``train.loss``, ``train.backward``
+and ``train.update`` (``clip``, ``sgd``, ``ema``: ``train/state.py``)
+inside (``utils.profiler.annotate``).
 
 With ``mesh=`` (``parallel.mesh.create_mesh``, one process a rank) the
 step computes what the one-process step computes on the global batch, as
@@ -60,6 +64,7 @@ from ..parallel.mesh import (
     shard_module,
     use_mesh,
 )
+from ..utils.profiler import annotate
 from .state import CheckpointManager, TrainState, make_train_state
 
 BATCH_KEYS = ("image", "gt_boxes", "gt_labels", "gt_mask", "solar_bin")
@@ -152,43 +157,49 @@ class DetectionTrainer:
         scale_u)}``, for the global batch), for tests that feed JAX's."""
         cfg, model, mesh = self.cfg, state.model, self.mesh
         draws = draws or {}
-        images = batch["image"].float() / 255.0
-        gt_boxes = batch["gt_boxes"]
-        if cfg.hsv_aug or cfg.hflip_prob > 0:
-            aug = draws.get("augment")
-            if mesh is not None:   # the global batch's draws, this rank's rows
-                rows = batch_slice(mesh, images.shape[0] * mesh.size)
-                if aug is None:
-                    aug = augment_draws(images.shape[0] * mesh.size,
-                                        self._generator(state.step, 0), images.device,
-                                        hflip_prob=cfg.hflip_prob)
-                aug = {k: v[rows] for k, v in aug.items()}
-            images, gt_boxes = train_augment(
-                images, gt_boxes, generator=self._generator(state.step, 0),
-                draws=aug, hsv=cfg.hsv_aug, hflip_prob=cfg.hflip_prob)
-        extra = {}
-        if getattr(model, "context_aware", False) and "solar_bin" in batch:
-            extra["context_ids"] = batch["solar_bin"]
-        if getattr(model, "denoising_capable", False):
-            dn = draws.get("denoise")
-            if mesh is not None and dn is not None:   # the global batch's, this rank's rows
-                rows = batch_slice(mesh, dn[0].shape[0])
-                dn = tuple(d[rows] for d in dn)
-            extra.update(gt_boxes=gt_boxes, gt_mask=batch["gt_mask"],
-                         denoise_generator=self._generator(state.step, 1), dn_draws=dn)
-        with use_mesh(mesh):
-            outputs = model(images, train=True, **extra)
-            total, metrics = self.loss_fn(outputs, batch["gt_labels"], gt_boxes,
-                                          batch["gt_mask"])
-            names, params = zip(*model.named_parameters())
-            objective = total / mesh.size if mesh is not None else total
-            grads = torch.autograd.grad(objective, params, allow_unused=True,
-                                        materialize_grads=True)
-        grads = dict(zip(names, grads))
-        if mesh is not None:
-            grads = reduce_gradients(grads, mesh)
-        state.apply_gradients(grads)
-        return state, {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
+        with annotate("train.step"):
+            with annotate("train.augment"):
+                images = batch["image"].float() / 255.0
+                gt_boxes = batch["gt_boxes"]
+                if cfg.hsv_aug or cfg.hflip_prob > 0:
+                    aug = draws.get("augment")
+                    if mesh is not None:   # the global batch's draws, this rank's rows
+                        rows = batch_slice(mesh, images.shape[0] * mesh.size)
+                        if aug is None:
+                            aug = augment_draws(images.shape[0] * mesh.size,
+                                                self._generator(state.step, 0), images.device,
+                                                hflip_prob=cfg.hflip_prob)
+                        aug = {k: v[rows] for k, v in aug.items()}
+                    images, gt_boxes = train_augment(
+                        images, gt_boxes, generator=self._generator(state.step, 0),
+                        draws=aug, hsv=cfg.hsv_aug, hflip_prob=cfg.hflip_prob)
+            extra = {}
+            if getattr(model, "context_aware", False) and "solar_bin" in batch:
+                extra["context_ids"] = batch["solar_bin"]
+            if getattr(model, "denoising_capable", False):
+                dn = draws.get("denoise")
+                if mesh is not None and dn is not None:   # the global batch's, this rank's rows
+                    rows = batch_slice(mesh, dn[0].shape[0])
+                    dn = tuple(d[rows] for d in dn)
+                extra.update(gt_boxes=gt_boxes, gt_mask=batch["gt_mask"],
+                             denoise_generator=self._generator(state.step, 1), dn_draws=dn)
+            with use_mesh(mesh):
+                with annotate("train.forward"):
+                    outputs = model(images, train=True, **extra)
+                with annotate("train.loss"):
+                    total, metrics = self.loss_fn(outputs, batch["gt_labels"], gt_boxes,
+                                                  batch["gt_mask"])
+                names, params = zip(*model.named_parameters())
+                objective = total / mesh.size if mesh is not None else total
+                with annotate("train.backward"):
+                    grads = torch.autograd.grad(objective, params, allow_unused=True,
+                                                materialize_grads=True)
+            grads = dict(zip(names, grads))
+            if mesh is not None:
+                grads = reduce_gradients(grads, mesh)
+            with annotate("train.update"):
+                state.apply_gradients(grads)
+            return state, {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
 
     def _to_device(self, batch) -> "Dict[str, torch.Tensor]":
         """One batch through ``prefetch_to_device``, cut to the step's keys

@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from ..parallel.mesh import EXPERT_AXIS, Mesh, barrier, gather_params, is_expert, shard_params
+from ..utils.profiler import annotate
 
 # Flax leaf name of a torch parameter, by the type of the module holding it.
 _KERNEL_MODULES = (nn.Linear, nn.Conv2d)
@@ -113,46 +114,48 @@ class Optimizer:
         params = [self.params[k] for k in names]
         g = [grads[k] for k in names]
         if self.grad_clip_norm is not None:
-            norm = global_norm(g) if not _expert_sharded(self.mesh) else _sharded_norm(
-                g, [is_expert(k) for k in names], self.mesh)
-            if not bool(norm < self.grad_clip_norm):
-                g = torch._foreach_mul(torch._foreach_div(g, norm), self.grad_clip_norm)
-        lr = self.schedule(count)
-        decayed = [i for i, k in enumerate(names) if self.decayed[k]]
-        wd = self.weight_decay
-        if self.kind == "adamw":
-            b1, b2, eps = 0.9, 0.999, 1e-8
-            c1 = float(1 - np.float32(b1) ** np.float32(count + 1))
-            c2 = float(1 - np.float32(b2) ** np.float32(count + 1))
-            mu = [self.state["mu"][k] for k in names]
-            nu = [self.state["nu"][k] for k in names]
-            torch._foreach_mul_(mu, b1)                         # b1·mu + (1 − b1)·g
-            torch._foreach_add_(mu, torch._foreach_mul(g, 1 - b1))
-            torch._foreach_mul_(nu, b2)                         # b2·nu + (1 − b2)·g²
-            torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2))
-            denom = torch._foreach_div(nu, c2)
-            torch._foreach_sqrt_(denom)
-            torch._foreach_add_(denom, eps)
-            u = list(torch._foreach_div(torch._foreach_div(mu, c1), denom))
-        else:
+            with annotate("train.clip"):
+                norm = global_norm(g) if not _expert_sharded(self.mesh) else _sharded_norm(
+                    g, [is_expert(k) for k in names], self.mesh)
+                if not bool(norm < self.grad_clip_norm):
+                    g = torch._foreach_mul(torch._foreach_div(g, norm), self.grad_clip_norm)
+        with annotate(f"train.{self.kind}"):
+            lr = self.schedule(count)
+            decayed = [i for i, k in enumerate(names) if self.decayed[k]]
+            wd = self.weight_decay
+            if self.kind == "adamw":
+                b1, b2, eps = 0.9, 0.999, 1e-8
+                c1 = float(1 - np.float32(b1) ** np.float32(count + 1))
+                c2 = float(1 - np.float32(b2) ** np.float32(count + 1))
+                mu = [self.state["mu"][k] for k in names]
+                nu = [self.state["nu"][k] for k in names]
+                torch._foreach_mul_(mu, b1)                         # b1·mu + (1 − b1)·g
+                torch._foreach_add_(mu, torch._foreach_mul(g, 1 - b1))
+                torch._foreach_mul_(nu, b2)                         # b2·nu + (1 − b2)·g²
+                torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2))
+                denom = torch._foreach_div(nu, c2)
+                torch._foreach_sqrt_(denom)
+                torch._foreach_add_(denom, eps)
+                u = list(torch._foreach_div(torch._foreach_div(mu, c1), denom))
+            else:
+                if decayed:
+                    g = list(g)
+                    dec = torch._foreach_add([g[i] for i in decayed],
+                                             torch._foreach_mul([params[i] for i in decayed], wd))
+                    for i, t in zip(decayed, dec):
+                        g[i] = t
+                trace = [self.state["trace"][k] for k in names]
+                torch._foreach_mul_(trace, self.momentum)           # g + m·trace
+                torch._foreach_add_(trace, g)
+                u = torch._foreach_add(g, torch._foreach_mul(trace, self.momentum))  # Nesterov
+                decayed = []
             if decayed:
-                g = list(g)
-                dec = torch._foreach_add([g[i] for i in decayed],
+                dec = torch._foreach_add([u[i] for i in decayed],
                                          torch._foreach_mul([params[i] for i in decayed], wd))
                 for i, t in zip(decayed, dec):
-                    g[i] = t
-            trace = [self.state["trace"][k] for k in names]
-            torch._foreach_mul_(trace, self.momentum)           # g + m·trace
-            torch._foreach_add_(trace, g)
-            u = torch._foreach_add(g, torch._foreach_mul(trace, self.momentum))  # Nesterov
-            decayed = []
-        if decayed:
-            dec = torch._foreach_add([u[i] for i in decayed],
-                                     torch._foreach_mul([params[i] for i in decayed], wd))
-            for i, t in zip(decayed, dec):
-                u[i] = t
-        torch._foreach_add_(params, torch._foreach_mul(u, -lr))
-        self.state["count"] = count + 1
+                    u[i] = t
+            torch._foreach_add_(params, torch._foreach_mul(u, -lr))
+            self.state["count"] = count + 1
 
     def state_dict(self) -> dict:
         return {k: (dict(v) if isinstance(v, dict) else v) for k, v in self.state.items()}
@@ -199,10 +202,11 @@ class TrainState:
         f32 = np.float32
         decay = f32(0.9999) * (f32(1) - np.exp(-f32(self.step) / f32(2000.0)))
         keep, take = float(decay), float(f32(1) - decay)
-        names, params = zip(*self.model.named_parameters())
-        ema = [self.ema_params[k] for k in names]
-        torch._foreach_mul_(ema, keep)                          # e·decay + p·(1 − decay)
-        torch._foreach_add_(ema, torch._foreach_mul(list(params), take))
+        with annotate("train.ema"):
+            names, params = zip(*self.model.named_parameters())
+            ema = [self.ema_params[k] for k in names]
+            torch._foreach_mul_(ema, keep)                      # e·decay + p·(1 − decay)
+            torch._foreach_add_(ema, torch._foreach_mul(list(params), take))
         return self
 
     def state_dict(self) -> dict:

@@ -41,6 +41,7 @@ from multimodal_moe_torch.models.rtdetr import RTDETRDetector as TorchRTDETR
 from multimodal_moe_torch.models.yolo import YoloDetector as TorchYolo
 from multimodal_moe_torch.ops import nms_kernel
 from multimodal_moe_torch.server import BatchingDetector, DetectorHTTPServer, _jpeg_dims
+from multimodal_moe_torch.utils.profiler import clear_spans, spans
 from multimodal_moe_tpu.models.yolo import YoloDetector as JaxYolo
 from multimodal_moe_tpu.server import BatchingDetector as JaxBatchingDetector
 from multimodal_moe_tpu.server import _jpeg_dims as jax_jpeg_dims
@@ -48,6 +49,7 @@ from test_torch_evaluator import SCORE_THR, Pair, _assert_well_defined, _scaled_
 
 H, W, BATCH = 64, 128, 4
 WAIT = 120  # seconds: every blocking wait has one
+STAGE_KEYS = ("decode_s", "queue_wait_s", "assemble_s", "step_s", "readback_s")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -195,7 +197,7 @@ def test_http_roundtrip_and_healthz(detector):
             assert health["device_calls"] >= 1
             assert health["requests"] >= 1
             assert set(health) == {"ok", "batch", "requests", "device_calls",
-                                   "batched_images", "last_step_ms", "errors"}
+                                   "batched_images", "last_step_ms", "errors", *STAGE_KEYS}
 
         # unknown path -> 404 JSON, not a stack trace
         with pytest.raises(urllib.error.HTTPError) as err:
@@ -431,3 +433,70 @@ def test_failing_batch_reaches_its_futures():
         det.close()
     with pytest.raises(RuntimeError, match="closed"):
         det.submit(_img(1))
+
+
+# --------------------------------------------------------------------------
+# the stage counters and spans the port adds
+# --------------------------------------------------------------------------
+
+def _stats(det):
+    with det._lock:
+        return dict(det.stats)
+
+
+def _post_jpeg(port, img):
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="JPEG")
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/predict?conf=0.0",
+                                 data=buf.getvalue())
+    with urllib.request.urlopen(req, timeout=WAIT) as resp:
+        assert resp.status == 200
+        return json.loads(resp.read())
+
+
+def test_stage_seconds_only_grow_and_count_the_batching_wait(detector):
+    """A lone request waits the whole ``max_wait_ms`` (300 ms) for company:
+    ``queue_wait_s`` counts it. Each stage's cumulative seconds grow with
+    every batch, and a body decoded by the handler (or a frame resized by
+    ``submit``) adds to ``decode_s``."""
+    before = _stats(detector)
+    detector.submit(_img(41, h=2 * H, w=W)).result(timeout=WAIT)    # resized: a decode
+    mid = _stats(detector)
+    assert mid["queue_wait_s"] - before["queue_wait_s"] >= 0.29
+    for k in STAGE_KEYS:
+        assert mid[k] > before[k], k
+    with serving(detector) as port:
+        _post_jpeg(port, _img(42))
+    after = _stats(detector)
+    for k in STAGE_KEYS:
+        assert after[k] > mid[k], k
+    assert after["device_calls"] == mid["device_calls"] + 1
+
+
+def test_server_spans_name_each_stage_and_thread(detector):
+    """Under a profiler: ``server.decode`` and ``server.respond`` on the
+    handler's thread; ``server.assemble``, ``server.step`` (the serving
+    step's ``serve.step`` inside it) and ``server.readback`` on the
+    collector's."""
+    clear_spans()
+    try:
+        with serving(detector) as port:
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+                _post_jpeg(port, _img(43))
+            for _ in range(200):        # the handler ends its span after the client has read
+                if any(s["name"] == "server.respond" for s in spans()):
+                    break
+                threading.Event().wait(0.05)
+        log = spans()
+        by_name = {s["name"]: s for s in log}
+        assert {(s["name"], s["parent"]) for s in log if s["name"].startswith("server.")} == {
+            ("server.decode", None), ("server.respond", None), ("server.assemble", None),
+            ("server.step", None), ("server.readback", None)}
+        assert by_name["serve.step"]["parent"] == "server.step"
+        assert by_name["server.decode"]["thread"] == by_name["server.respond"]["thread"]
+        for name in ("server.assemble", "server.step", "server.readback"):
+            assert by_name[name]["thread"] == "mmoe-batcher"
+    finally:
+        clear_spans()
