@@ -134,6 +134,15 @@ Phases (each prints one JSON line):
                (printed, not checked); the kernel's branch-free SiLU against
                its exact division over every float32 input it takes
                (``moe_ffn_silu_check``: no bit may differ).
+8b. moe_sweep_fwd -- the fused expert sweep (``csrc/moe_sweep_fwd.cu``: all
+               experts' FFN, the gate combine and the residual of one MoE
+               level) against its plain version at the three MoE-YOLO-s level
+               shapes of the B=128 headline (T = 128 * the level's cells, E=4,
+               k=2, d=128/256/512, h=2d, bf16), within
+               ``moe_sweep.sweep_tolerance``, bit-identical on a repeat; a
+               ragged last tile (T=300); kernel, plain (fp32 products) and
+               library (``x + moe_apply_sweep``, the cuBLAS path it replaces)
+               times against the bound (4*T*E*d*h flops at 989 TFLOP/s).
 9. moe_yolo_fp32 -- MoE-YOLO-s (E=4, k=2, cf=1.25, ``arch="tpu"``, random
                weights from seed 0, context bias randomised), fp32 with TF32
                off, B=2 at 704x1248, seeded context ids, card against CPU in
@@ -475,6 +484,7 @@ from multimodal_moe_torch.ops import (  # noqa: E402
     gmm_kernel,
     int8_conv,
     moe_kernels,
+    moe_sweep,
     nms_kernel,
     preprocess,
 )
@@ -515,7 +525,7 @@ PEAK_BF16_FLOPS = 989e12  # dense tensor cores
 PEAK_TF32_FLOPS = 495e12  # dense tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 IOU_FLOPS = 14  # min/max/sub/mul/add/div/compare per pair, areas amortised
-KERNELS = ("nms_keep", "ms_deform_fwd", "ms_deform_bwd", "moe_ffn_fwd", "gmm")
+KERNELS = ("nms_keep", "ms_deform_fwd", "ms_deform_bwd", "moe_ffn_fwd", "gmm", "moe_sweep_fwd")
 # RT-DETR headline (bench.py: RT_B=16 at the protocol resolution).
 RT_B, RT_QUERIES, RT_LAYERS = 16, 300, 6
 RT_LEVELS = ((IMG_H // 8, IMG_W // 8), (IMG_H // 16, IMG_W // 16), (IMG_H // 32, IMG_W // 32))
@@ -2868,6 +2878,96 @@ def router_logits(model):
     return logits, handles
 
 
+def sweep_problem(t, d, seed, dev):
+    """A level's bf16 tokens, a top-2 routing of seeded logits and
+    Flax-scaled expert weights with small biases (h = 2d)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)  # noqa: E731
+    h = 2 * d
+    idx, gates, _, _ = moe_module.route_top_k_dropless(rnd(t, MOE_E) * 1.5, k=MOE_K)
+    args = (rnd(t, d), rnd(MOE_E, d, h) * (MOE_E * d) ** -0.5, rnd(MOE_E, 1, h) * 0.1,
+            rnd(MOE_E, h, d) * (MOE_E * h) ** -0.5, rnd(MOE_E, 1, d) * 0.1)
+    x, w1, b1, w2, b2 = (a.to(torch.bfloat16).contiguous() for a in args)
+    return x, idx.contiguous(), gates, w1, b1, w2, b2
+
+
+def sweep_bound(t, d, h) -> "tuple[float, str]":
+    """Least time for one level's sweep: the tokens read and the output
+    written once, the weights once; or both products of every expert,
+    4*T*E*d*h flops, at the bf16 tensor-core peak."""
+    nbytes = 2 * (2 * t * d + MOE_E * (2 * d * h + h + d)) + 12 * t * MOE_K
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 4 * t * MOE_E * d * h / PEAK_BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+@torch.inference_mode()
+def phase_moe_sweep(dev) -> dict:
+    levels = [(MOE_B * hh * ww, d) for (hh, ww), d in zip(MOE_LEVELS, MOE_WIDTHS)]
+    report = {}
+    for seed, (name, (t, d)) in enumerate([*((f"level{i}", lv) for i, lv in enumerate(levels)),
+                                           ("ragged_300", (300, 128))]):
+        args = sweep_problem(t, d, seed, dev)
+        x, idx, gates, w1, b1, w2, b2 = args
+        got = moe_sweep.moe_sweep_fwd(*args)
+        ref = moe_sweep._sweep_plain(*args)
+        tol = moe_sweep.sweep_tolerance(*args, ref)
+        again = moe_sweep.moe_sweep_fwd(*args)
+        torch.cuda.synchronize()
+        diff = (got.float() - ref.float()).abs()
+        rec = {"T": t, "d": d, "h": 2 * d, "E": MOE_E, "k": MOE_K,
+               "max_abs_err": float(diff.max()),
+               "max_err_over_tolerance": float((diff / tol).max()),
+               "within_tolerance": bool((diff <= tol).all()),
+               "finite": bool(torch.isfinite(got).all()),
+               "bitwise_repeat": bool(torch.equal(got.view(torch.int16), again.view(torch.int16))),
+               "library_max_abs_err": float(
+                   ((x + moe_module.moe_apply_sweep(x, idx, gates, w1, b1, w2, b2)).float()
+                    - ref.float()).abs().max())}
+        del got, ref, tol, again, diff
+        if name.startswith("level"):
+            bound_ms, bound_by = sweep_bound(t, d, 2 * d)
+            kernel_ms = cuda_ms(lambda: moe_sweep.moe_sweep_fwd(*args), reps=10, warmup=2)
+            library_ms = cuda_ms(
+                lambda: x + moe_module.moe_apply_sweep(x, idx, gates, w1, b1, w2, b2), reps=5)
+            rec.update(kernel_ms=kernel_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       bound_share=bound_ms / kernel_ms, library_ms=library_ms,
+                       plain_ms=cuda_ms(lambda: moe_sweep._sweep_plain(*args), reps=2, warmup=1),
+                       library_over_kernel=library_ms / kernel_ms,
+                       kernel_tflops=4 * t * MOE_E * d * 2 * d / kernel_ms / 1e9)
+        report[name] = rec
+        del args, x, idx, gates, w1, b1, w2, b2
+        torch.cuda.empty_cache()
+    total = lambda k: float(sum(r[k] for r in report.values() if k in r))  # noqa: E731
+    rec = {"phase": "moe_sweep_fwd", "cases": report, "kernel_ms": total("kernel_ms"),
+           "plain_ms": total("plain_ms"), "library_ms": total("library_ms"),
+           "bound_ms": total("bound_ms"), "bound_share": total("bound_ms") / total("kernel_ms")}
+    emit(rec)
+    for name, r in report.items():
+        check(r["finite"] and r["within_tolerance"], f"moe_sweep_fwd {name}: within tolerance")
+        check(r["bitwise_repeat"], f"moe_sweep_fwd {name}: repeats bit for bit")
+    return rec
+
+
+def moe_sweep_entry(rec, launches) -> dict:
+    """The ``kernels`` entry of the sweep kernel: the three B=128 levels."""
+    levels = [r for name, r in rec["cases"].items() if name.startswith("level")]
+    return {
+        "name": "moe_sweep_fwd", "route": "cuda",
+        "source": "multimodal_moe_torch/csrc/moe_sweep_fwd.cu",
+        "replaces": "none (the JAX sweep, models/moe.py:moe_apply_sweep, is XLA's matmuls)",
+        "shape": {"E": MOE_E, "k": MOE_K, "levels": [{"T": r["T"], "d": r["d"], "h": r["h"]}
+                                                     for r in levels], "dtype": "bfloat16"},
+        "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rec["cases"].values()),
+        "ms": rec["kernel_ms"], "kernel_ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"], "bound_by": "operations", "library_ms": rec["library_ms"],
+        "bound_share": rec["bound_share"],
+        "per_level": [{k: r[k] for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                                         "bound_share", "max_abs_err", "max_err_over_tolerance")}
+                      for r in levels],
+    }
+
+
 def phase_moe_yolo_fp32(dev) -> "tuple[dict, float]":
     b = 2
     model = build_moe_yolo(torch.float32, dev)
@@ -2964,6 +3064,7 @@ def phase_moe_yolo_serving(dev, smi: str) -> "tuple[dict, dict]":
         set_route(model, route)
         # The main path: the counts from zero over one serving step.
         moe_kernels.moe_ffn_fwd_launches = 0
+        moe_sweep.moe_sweep_fwd_launches = 0
         nms_kernel.nms_keep_launches = 0
         dropped, ffn_args = [], []
 
@@ -2980,6 +3081,7 @@ def phase_moe_yolo_serving(dev, smi: str) -> "tuple[dict, dict]":
         r = {"resolved_dispatch": [moe_module.resolve_dispatch(m.dispatch, t, MOE_E)
                                    for m, t in zip(levels, tokens)],
              "moe_ffn_fwd_launches": moe_kernels.moe_ffn_fwd_launches,
+             "moe_sweep_fwd_launches": moe_sweep.moe_sweep_fwd_launches,
              "nms_keep_launches": nms_kernel.nms_keep_launches,
              "dropped_token_share": dropped or None}
         check(all(bool(torch.isfinite(t).all()) for t in res[:2]), f"finite MoE outputs ({route})")
@@ -3028,6 +3130,9 @@ def phase_moe_yolo_serving(dev, smi: str) -> "tuple[dict, dict]":
     check(fused["moe_ffn_fwd_launches"] == 3,
           f"fused serving step launched moe_ffn_fwd {fused['moe_ffn_fwd_launches']} times, not 3")
     check(auto["moe_ffn_fwd_launches"] == 0, "the auto (sweep) step launches no FFN kernel")
+    check(auto["moe_sweep_fwd_launches"] == 3,
+          f"auto serving step launched moe_sweep_fwd {auto['moe_sweep_fwd_launches']} times, not 3")
+    check(fused["moe_sweep_fwd_launches"] == 0, "the fused (sparse) step launches no sweep kernel")
     for route, r in rec["routes"].items():
         check(r["nms_keep_launches"] >= 1, f"{route} serving step launched nms_keep")
     for lvl, lv in enumerate(per_level):
@@ -5343,7 +5448,7 @@ CLI_RUN_FILES = {"model_config.json", "fit_progress.json", "train_summary.json",
 # context ids that each training forward of MoE-YOLO hands its routers.
 COUNTING_MAIN = """
 import atexit, json, os, runpy, sys
-from multimodal_moe_torch.ops import deformable_kernel, gmm_kernel, moe_kernels, nms_kernel
+from multimodal_moe_torch.ops import deformable_kernel, gmm_kernel, moe_kernels, moe_sweep, nms_kernel
 transposed, gmm = [0], gmm_kernel.gmm
 def counting_gmm(lhs, rhs, group_sizes, transpose_rhs=False):
     before = gmm_kernel.gmm_launches
@@ -5356,6 +5461,7 @@ atexit.register(lambda: print("[launches] " + json.dumps({
     "ms_deform_fwd": deformable_kernel.ms_deform_fwd_launches,
     "ms_deform_bwd": deformable_kernel.ms_deform_bwd_launches,
     "moe_ffn_fwd": moe_kernels.moe_ffn_fwd_launches,
+    "moe_sweep_fwd": moe_sweep.moe_sweep_fwd_launches,
     "gmm": gmm_kernel.gmm_launches, "gmm_transposed": transposed[0],
     "tgmm": gmm_kernel.tgmm_launches}), flush=True))
 if os.environ.get("CHIP_SMOKE_CONTEXT_IDS"):
@@ -5377,13 +5483,14 @@ def kernel_counts() -> dict:
             "ms_deform_fwd": deformable_kernel.ms_deform_fwd_launches,
             "ms_deform_bwd": deformable_kernel.ms_deform_bwd_launches,
             "moe_ffn_fwd": moe_kernels.moe_ffn_fwd_launches,
+            "moe_sweep_fwd": moe_sweep.moe_sweep_fwd_launches,
             "gmm": gmm_kernel.gmm_launches, "tgmm": gmm_kernel.tgmm_launches}
 
 
 def zero_kernel_counts() -> None:
     nms_kernel.nms_keep_launches = 0
     deformable_kernel.ms_deform_fwd_launches = deformable_kernel.ms_deform_bwd_launches = 0
-    moe_kernels.moe_ffn_fwd_launches = 0
+    moe_kernels.moe_ffn_fwd_launches = moe_sweep.moe_sweep_fwd_launches = 0
     gmm_kernel.gmm_launches = gmm_kernel.tgmm_launches = 0
 
 
@@ -6185,12 +6292,14 @@ def main() -> int:
     }
 
     ffn_cases = phase_moe_ffn(dev)
+    sweep = phase_moe_sweep(dev)
     _, fp32_ffn_err = phase_moe_yolo_fp32(dev)
     moe_serving, per_level = phase_moe_yolo_serving(dev, smi)
     ffn_entry = moe_kernel_entry(
         per_level, moe_serving["routes"]["fused"]["moe_ffn_fwd_launches"],
         [fp32_ffn_err] + [c["max_abs_err"] for c in ffn_cases.values()]
         + [lv["max_abs_err"] for lv in per_level])
+    sweep_entry = moe_sweep_entry(sweep, moe_serving["routes"]["auto"]["moe_sweep_fwd_launches"])
     headline_of = lambda r: {k: r[k] for k in ("step_ms", "img_per_s", "peak_mem_gib")}  # noqa: E731
     int8 = phase_int8(dev, smi, {"yolo": headline_of(serving),
                                  "moe": headline_of(moe_serving["routes"]["auto"]),
@@ -6275,7 +6384,7 @@ def main() -> int:
             "gmm": tools["launches"]["gmm"] - tools["launches"]["gmm_transposed"],
             "gmm_transposed": tools["launches"]["gmm_transposed"],
             "tgmm": tools["launches"]["tgmm"]}[entry["name"]]
-    emit({"kernels": [nms_entry, deform_entry, bwd_entry, ffn_entry, *gmm_entries]})
+    emit({"kernels": [nms_entry, deform_entry, bwd_entry, ffn_entry, sweep_entry, *gmm_entries]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

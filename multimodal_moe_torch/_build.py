@@ -32,11 +32,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# Sources built with other flags. The fused expert FFN sums products in an
-# order no plain version shares, so it has nothing to gain from splitting
-# every fp32 multiply-add in two.
+# Sources built with other flags. The fused expert FFN and the fused sweep sum
+# products in an order no plain version shares, so they have nothing to gain
+# from splitting every fp32 multiply-add in two.
 SOURCE_FLAGS = {
-    "moe_ffn_fwd": tuple(f for f in NVCC_FLAGS if f != "--fmad=false"),
+    name: tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
+    for name in ("moe_ffn_fwd", "moe_sweep_fwd")
 }
 
 _LOADED: "Dict[tuple, ctypes.CDLL]" = {}

@@ -8,7 +8,9 @@ Switch balance loss and the ST-MoE z-loss, and the dispatch modes of
 
 * ``"dense"``: ``(T, E, C)`` dispatch and combine einsums (small T);
 * ``"sweep"``: every expert on every token, combined by the ``(T, E)`` gate
-  matrix (dropless);
+  matrix (dropless); in one process, for bfloat16 tokens on the card with
+  autograd off (serving), the CUDA kernel of :mod:`..ops.moe_sweep` computes
+  the whole sweep and the residual in one launch (:func:`sweep_kernel_applies`);
 * ``"sparse"``: scatter into an ``(E·C + 1, d)`` capacity buffer whose last
   row is the trash slot, expert FFN, clipped gather; with ``use_fused_ffn``
   the expert FFN is the CUDA kernel of :mod:`..ops.moe_kernels` and the
@@ -45,9 +47,10 @@ rank keeping its own rows. Top-k over probabilities uses ``stable_topk``
 Under a profiler (``utils.profiler.annotate``) each ``MoEFFN`` call is the
 span ``moe.level``; in one process it holds ``moe.route`` (the gate and the
 top-k route) and ``moe.experts`` (the experts and the combine), which
-counts ``routed_rows`` (T·k) and ``computed_rows``, the rows its experts
+counts ``routed_rows`` (T·k), ``computed_rows``, the rows its experts
 run: T·E for the sweeps, T·k for ``gmm``, the E·C capacity slots for
-``dense`` and ``sparse``.
+``dense`` and ``sparse``, and ``kernel_rows``, those of them that the sweep
+kernel ran (T·E or 0).
 """
 
 from __future__ import annotations
@@ -59,7 +62,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import gmm_kernel, moe_kernels
+from ..ops import gmm_kernel, moe_kernels, moe_sweep
 from ..ops.int8_conv import int_mm
 from ..ops.nms import stable_topk
 from ..parallel.mesh import EXPERT_AXIS, active_mesh, expert_rows
@@ -320,6 +323,17 @@ def moe_apply_sweep_int8(tokens_q, token_scale, expert_idx, gates, w1_q, s_w1, b
     return out
 
 
+def sweep_kernel_applies(mode: str, device_type: str, dtype: torch.dtype,
+                         grad_enabled: bool, width: int) -> bool:
+    """Whether :class:`MoEFFN` runs its resolved ``mode`` through the sweep
+    kernel: the sweep, on bfloat16 tokens on the card, with autograd off, at
+    a width the kernel takes (``moe_sweep.sweep_stages``: every MoE-YOLO
+    width up to 512). A training forward keeps the plain sweep, whose
+    ``(E, T, h)`` activations its backward needs."""
+    return (mode == "sweep" and device_type == "cuda" and dtype == torch.bfloat16
+            and not grad_enabled and moe_sweep.sweep_stages(width) > 0)
+
+
 def resolve_dispatch(dispatch: str, num_tokens: int, num_experts: int) -> str:
     """Resolve ``dispatch="auto"`` to the mode :class:`MoEFFN` runs."""
     if dispatch != "auto":
@@ -466,7 +480,7 @@ class MoEFFN(nn.Module):
             tokens_fp = tokens.q.float() * tokens.s
             logits = self.router(tokens_fp, context_ids)
             topk_idx, gates, aux_loss, expert_load = route_top_k_dropless(logits, k=self.k)
-        with annotate("moe.experts", routed_rows=t * self.k, computed_rows=t * e):
+        with annotate("moe.experts", routed_rows=t * self.k, computed_rows=t * e, kernel_rows=0):
             out = moe_apply_sweep_int8(tokens.q, tokens.s, topk_idx, gates, self.w1_q, self.s_w1,
                                        self.b1, self.s_mid, self.w2_q, self.s_w2, self.b2)
         return tokens_fp + out, {"moe_aux_loss": aux_loss, "expert_load": expert_load}
@@ -490,6 +504,8 @@ class MoEFFN(nn.Module):
         # pairs for gmm, the capacity slots for dense and sparse.
         computed = {"sweep": t * e, "gmm": t * self.k}.get(mode, e * capacity)
         x = tokens.to(self.dtype)
+        fused = sweep_kernel_applies(mode, x.device.type, x.dtype, torch.is_grad_enabled(),
+                                     x.shape[1])
         with annotate("moe.route"):
             logits = self.router(tokens, context_ids)
             if mode in ("gmm", "sweep"):
@@ -500,8 +516,12 @@ class MoEFFN(nn.Module):
             else:
                 rd = route_top_k_sparse(logits, k=self.k, capacity=capacity)
                 aux_loss, expert_load = rd.aux_loss, rd.expert_load
-        with annotate("moe.experts", routed_rows=t * self.k, computed_rows=computed):
-            if mode in ("gmm", "sweep"):
+        with annotate("moe.experts", routed_rows=t * self.k, computed_rows=computed,
+                      kernel_rows=t * e if fused else 0):
+            if fused:
+                out = moe_sweep.moe_sweep_fwd(x, topk_idx.contiguous(), gates, w1.to(x.dtype),
+                                              b1.to(x.dtype), w2.to(x.dtype), b2.to(x.dtype))
+            elif mode in ("gmm", "sweep"):
                 apply = moe_apply_gmm if mode == "gmm" else moe_apply_sweep
                 out = apply(x, topk_idx, gates, w1, b1, w2, b2)
             elif mode == "dense":
@@ -513,6 +533,8 @@ class MoEFFN(nn.Module):
                 out = moe_apply_sparse(x, rd, w1, b1, w2, b2, capacity=capacity,
                                        use_fused_ffn=self.use_fused_ffn)
         aux = {"moe_aux_loss": aux_loss, "expert_load": expert_load}
+        if fused:  # the kernel adds the residual, in the compute dtype
+            return out.to(tokens.dtype), aux
         return tokens + out.to(tokens.dtype), aux
 
     def _forward_on_mesh(self, tokens, context_ids, mesh):

@@ -238,8 +238,10 @@ def test_moe_level_spans_and_rows(mode):
     log = spans()
     assert tree(log) == {("moe.level", None), ("moe.route", "moe.level"),
                          ("moe.experts", "moe.level")}
+    # kernel_rows: the sweep kernel runs only on the card.
     assert names(log, "moe.experts")[0]["counts"] == {"routed_rows": T * K,
-                                                      "computed_rows": COMPUTED[mode]}
+                                                      "computed_rows": COMPUTED[mode],
+                                                      "kernel_rows": 0}
 
 
 def test_auto_dispatch_counts_each_level_in_a_detector():
@@ -255,7 +257,8 @@ def test_auto_dispatch_counts_each_level_in_a_detector():
         mode = tm.resolve_dispatch("auto", t, E)
         cap = max(int(t * K * 1.25 / E), K)
         want.append({"routed_rows": t * K,
-                     "computed_rows": t * E if mode == "sweep" else E * cap})
+                     "computed_rows": t * E if mode == "sweep" else E * cap,
+                     "kernel_rows": 0})
     assert sorted(rows, key=lambda c: c["routed_rows"]) == \
         sorted(want, key=lambda c: c["routed_rows"])
 
