@@ -5,7 +5,9 @@ Counterpart of ``multimodal_moe_tpu/losses/hungarian.py``: the cost matrix
 device with static shapes; the assignment is solved on the host
 (:mod:`..ops.assignment`). Padded GT columns carry a large constant cost and
 are masked out of the loss. Every ``stop_gradient`` of the JAX module is a
-``.detach()`` here.
+``.detach()`` here. Under a profiler the host solve, its synchronising copy
+included, is the span ``detr.match`` (counts ``problems``, L·B, and
+``columns``, the valid ground truth over them; ``utils.profiler.annotate``).
 
 Under an active mesh (``parallel.mesh.use_mesh``) each rank holds a slice
 of the global batch, and :func:`detr_loss` returns the global loss, as the
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 from ..ops.assignment import batched_lsa_assign
 from ..ops.boxes import cxcywh_to_xyxy, elementwise_giou, pairwise_giou
 from ..parallel.mesh import active_mesh
+from ..utils.profiler import annotate
 
 BIG_COST = 1e6
 
@@ -57,7 +60,11 @@ def hungarian_match(
         cost = cost_class * cls_cost + cost_bbox * l1_cost + cost_giou * giou_cost
         cost = torch.where(gt_mask[:, None, :], cost, torch.full_like(cost, BIG_COST))
         cost = torch.nan_to_num(cost, nan=BIG_COST, posinf=BIG_COST, neginf=-BIG_COST)
-    return batched_lsa_assign(cost, gt_mask)
+    with annotate("detr.match", problems=cost.shape[0]) as span:
+        assigned = batched_lsa_assign(cost, gt_mask)
+        if span is not None:   # only under a profiler: one more read of the mask
+            span.counts["columns"] = int(gt_mask.sum())
+    return assigned
 
 
 def _gt_cxcywh(gt_boxes_xyxy: torch.Tensor, img_hw: "Tuple[int, int]") -> torch.Tensor:

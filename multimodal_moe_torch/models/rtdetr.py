@@ -13,7 +13,13 @@ valid mask and the level offsets assume.
 
 Float32 islands, kept in bf16 too: the softmax of the attention weights,
 the sampling locations, the deformable sampling itself, encoder boxes and
-scores, and the refined boxes. ``forward(train=True)`` needs train mode
+scores, and the refined boxes. Under a profiler a forward is the spans
+``rtdetr.backbone``, ``rtdetr.encoder``, ``rtdetr.select`` (counts
+``anchors``, ``queries``) and ``rtdetr.decoder`` (``queries``, the
+denoising ones included, ``layers``), with ``rtdetr.deform`` around each
+sampling call (``batch``, ``value_rows``, ``queries``, ``heads``,
+``levels``, ``points``; ``utils.profiler.annotate``).
+``forward(train=True)`` needs train mode
 (``model.train()``: Flax's batch statistics in every BatchNorm); with
 ground truth it adds the denoising queries. The loss is
 :func:`rtdetr_loss` (``losses/hungarian.py``).
@@ -38,6 +44,7 @@ from ..ops.deformable_kernel import ms_deform_attn_fwd
 from ..ops.nms import stable_topk
 from ..parallel.mesh import active_mesh, batch_slice
 from ..quant import QT, dequantize, q_from_images, quantize_to, record_absmax, register_quant
+from ..utils.profiler import annotate
 from .layers import MLP, CSPStage, ConvBNAct, PlainStage, concat, lecun_normal_, upsample2x
 from .resnet import ResNet
 
@@ -220,7 +227,10 @@ class MSDeformAttn(nn.Module):
 
     def forward(self, query, reference_points, values, level_shapes):
         v, loc, weights = self.sampling_inputs(query, reference_points, values)
-        out = ms_deform_attn_fwd(v, level_shapes, loc, weights)
+        b, q, nh, nl, npt = weights.shape
+        with annotate("rtdetr.deform", batch=b, value_rows=v.shape[1], queries=q, heads=nh,
+                      levels=nl, points=npt):
+            out = ms_deform_attn_fwd(v, level_shapes, loc, weights)
         return self.output_proj(out.to(query.dtype))
 
 
@@ -415,27 +425,30 @@ class RTDETRDetector(nn.Module):
                 "mode: BatchNorm follows the mode, so call model.train() or model.eval() first"
             )
         b, img_h, img_w, _ = images.shape
-        x = q_from_images(images) if self.int8 else images.to(self.dtype).permute(0, 3, 1, 2)
-        _, c3, c4, c5 = self.backbone(x)
-        feats = self.encoder([c3, c4, c5])
-        if self.int8:
-            feats = [dequantize(f) for f in feats]
-        level_shapes = [tuple(f.shape[2:]) for f in feats]
-        memory = torch.cat([tokens_of(f) for f in feats], dim=1)   # (B, ΣHW, C)
+        with annotate("rtdetr.backbone"):
+            x = q_from_images(images) if self.int8 else images.to(self.dtype).permute(0, 3, 1, 2)
+            _, c3, c4, c5 = self.backbone(x)
+        with annotate("rtdetr.encoder"):
+            feats = self.encoder([c3, c4, c5])
+            if self.int8:
+                feats = [dequantize(f) for f in feats]
+            level_shapes = [tuple(f.shape[2:]) for f in feats]
+            memory = torch.cat([tokens_of(f) for f in feats], dim=1)   # (B, ΣHW, C)
 
         # IoU-aware query selection from the encoder output.
-        enc_logits = self.enc_score(memory).float()
-        anchors, valid = self._anchors(level_shapes, memory.device)
-        enc_boxes = torch.sigmoid(self.enc_bbox(memory).float() + anchors[None])
-        scores = enc_logits.max(dim=-1).values
-        scores = scores.masked_fill(~valid[None], -1e9)
-        _, topk = stable_topk(scores, self.num_queries)             # lax.top_k's ties
-        ref_boxes = torch.gather(enc_boxes, 1, topk[..., None].expand(-1, -1, 4))
-        enc_topk_logits = torch.gather(
-            enc_logits, 1, topk[..., None].expand(-1, -1, enc_logits.shape[-1]))
-        content = torch.gather(memory, 1, topk[..., None].expand(-1, -1, memory.shape[-1]))
-        query = self.query_proj(content.detach())
-        ref = ref_boxes.detach()
+        with annotate("rtdetr.select", anchors=memory.shape[1], queries=self.num_queries):
+            enc_logits = self.enc_score(memory).float()
+            anchors, valid = self._anchors(level_shapes, memory.device)
+            enc_boxes = torch.sigmoid(self.enc_bbox(memory).float() + anchors[None])
+            scores = enc_logits.max(dim=-1).values
+            scores = scores.masked_fill(~valid[None], -1e9)
+            _, topk = stable_topk(scores, self.num_queries)             # lax.top_k's ties
+            ref_boxes = torch.gather(enc_boxes, 1, topk[..., None].expand(-1, -1, 4))
+            enc_topk_logits = torch.gather(
+                enc_logits, 1, topk[..., None].expand(-1, -1, enc_logits.shape[-1]))
+            content = torch.gather(memory, 1, topk[..., None].expand(-1, -1, memory.shape[-1]))
+            query = self.query_proj(content.detach())
+            ref = ref_boxes.detach()
 
         # Contrastive denoising queries (training with ground truth only).
         num_dn, attn_mask, dn_is_pos = 0, None, None
@@ -459,18 +472,20 @@ class RTDETRDetector(nn.Module):
         # so each layer's box loss sees only its own delta.
         aux_outputs: "List[Dict[str, torch.Tensor]]" = []
         dn_outputs: "List[Dict[str, torch.Tensor]]" = []
-        for li in range(self.num_decoder_layers):
-            query_pos = getattr(self, f"ref_embed{li}")(ref.to(self.dtype))
-            query = getattr(self, f"decoder{li}")(query, query_pos, ref, memory, level_shapes,
-                                                  attn_mask=attn_mask)
-            delta = getattr(self, f"bbox_head{li}")(query)
-            ref_out = torch.sigmoid(delta.float() + inverse_sigmoid(ref))
-            logits = getattr(self, f"cls_head{li}")(query).float()
-            aux_outputs.append({"pred_logits": logits[:, num_dn:], "pred_boxes": ref_out[:, num_dn:]})
-            if num_dn:
-                dn_outputs.append({"pred_logits": logits[:, :num_dn],
-                                   "pred_boxes": ref_out[:, :num_dn]})
-            ref = ref_out.detach()
+        with annotate("rtdetr.decoder", queries=query.shape[1], layers=self.num_decoder_layers):
+            for li in range(self.num_decoder_layers):
+                query_pos = getattr(self, f"ref_embed{li}")(ref.to(self.dtype))
+                query = getattr(self, f"decoder{li}")(query, query_pos, ref, memory,
+                                                      level_shapes, attn_mask=attn_mask)
+                delta = getattr(self, f"bbox_head{li}")(query)
+                ref_out = torch.sigmoid(delta.float() + inverse_sigmoid(ref))
+                logits = getattr(self, f"cls_head{li}")(query).float()
+                aux_outputs.append({"pred_logits": logits[:, num_dn:],
+                                    "pred_boxes": ref_out[:, num_dn:]})
+                if num_dn:
+                    dn_outputs.append({"pred_logits": logits[:, :num_dn],
+                                       "pred_boxes": ref_out[:, :num_dn]})
+                ref = ref_out.detach()
 
         final = aux_outputs[-1]
         pb = final["pred_boxes"]
